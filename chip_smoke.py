@@ -8,24 +8,31 @@ or of the JAX package.  In order it:
 
   1. prints the card (``nvidia-smi`` name and power limit) and turns TF32
      off for matmuls and cuDNN convolutions;
-  2. builds every kernel of the main path from ``src/repro_torch/kernels/
-     csrc`` with nvcc (all sources at once) and prints ptxas's registers
-     and shared memory per kernel;
+  2. builds every kernel of the two paths from ``src/repro_torch/kernels/
+     csrc`` with nvcc (one process per source, all started together) and
+     prints ptxas's registers and shared memory per kernel;
   3. holds each kernel against its plain PyTorch version on the card, over
-     the CPU tests' sweep and at the main path's shapes;
-  4. times each kernel at the main path's shape (CUDA events around
-     each launch after warm-up; 4 rounds of 10 launches each of kernel,
-     plain version and one PyTorch library call computing the same
-     function, in alternating order; median and quartiles) beside its
-     bound, with the card's clocks and power after, and splits
-     the engine's fold at that shape into flatten, reduce and unflatten;
-  5. runs the main path at the paper's FEMNIST width (``FemnistConfig()``,
-     L = 164,187,070 parameters): 4 silos, 3 FedAvg rounds, client and
-     server checkpoints, the server killed at round 3 and restored from
-     stable storage, message sizes measured.  Kernel launch counts are set
-     to 0 just before and read just after;
-  6. runs a reduced FEMNIST model for 2 rounds on the card and on the CPU
-     (plain versions) from the same weights and compares them.
+     the CPU tests' sweep and at the paths' shapes (``dequant_fold`` bit
+     for bit, on aligned and misaligned payloads);
+  4. times each kernel at its path's shape (CUDA events around each
+     launch after warm-up; 4 rounds of 10 launches each of kernel, plain
+     version and one PyTorch library call computing the same function,
+     in alternating order; median and quartiles) beside its bound, with
+     the card's clocks and power after; splits the dense fold at that
+     shape into flatten, reduce and unflatten, and the compressed round's
+     server work into encode, wire frame and fold;
+  5. runs the dense main path at the paper's FEMNIST width
+     (``FemnistConfig()``, L = 164,187,070 parameters): 4 silos, 3 FedAvg
+     rounds, client and server checkpoints, the server killed at round 3
+     and restored from stable storage, message sizes measured;
+  6. runs the compressed path at the same width: ``AsyncFLServer`` with
+     int8 updates, 4 silos, 2 rounds, then one fp16 round, message sizes
+     measured.  For each path every kernel's launch count is set to 0
+     just before and read just after;
+  7. runs a reduced FEMNIST model on the card and on the CPU (plain
+     versions) from the same weights and compares them: 2 dense rounds,
+     and 3 int8 rounds with a slow silo parked past a deadline and
+     carried into the next round.
 
 Any failed check exits non-zero.  The line before the last is the
 ``{"kernels": [...]}`` record; the last is ``{"ok": true, "device": ...}``.
@@ -136,7 +143,7 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
-    libs = _build.build(["fedavg_reduce"])
+    libs = _build.build(["fedavg_reduce", "dequant_fold"])
     say(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
         f"in {time.monotonic() - t0:.1f} s")
     for name in libs:
@@ -261,6 +268,184 @@ def phase_fold_breakdown():
     return parts
 
 
+def _dequant_inputs(codec: str, n: int, lp: int, gen, offset: int = 0):
+    """An int8 or fp16 payload of n elements (``offset`` elements into its
+    buffer, so offset 1 is a payload 16-byte misaligned), its scales and
+    an fp32 accumulator of lp elements, on the card."""
+    import torch
+    from repro_torch.kernels.fedavg_reduce import BLOCK
+
+    nb = lp // BLOCK
+    if codec == "int8":
+        buf = torch.randint(-127, 128, (n + offset,), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        scales = torch.rand(nb, generator=gen, device="cuda") * 1e-3
+    else:
+        buf = (torch.randn(n + offset, generator=gen, device="cuda") * 1e-2).half()
+        scales = torch.ones(nb, device="cuda")
+    acc = torch.randn(lp, generator=gen, device="cuda")
+    return acc, buf[offset:], scales
+
+
+def phase_dequant_check():
+    """dequant_fold against its plain version on the card, bit for bit: the
+    kernel rounds w*s, (w*s)*x and the sum in fp32 in the plain version's
+    order, with __fmul_rn/__fadd_rn so nothing is contracted into an FMA.
+    The accumulator's elements past the payload must stay as they were,
+    and an accumulator not padded to BLOCK must raise.  Returns the
+    largest error at the main path's shape (int8, paper width)."""
+    import torch
+    from repro_torch.kernels.dequant_fold import dequant_fold, dequant_fold_plain
+    from repro_torch.kernels.fedavg_reduce import BLOCK
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lp_paper = -(-PAPER_L // BLOCK) * BLOCK
+    cases = []
+    for codec in ("int8", "fp16"):
+        cases += [(codec, BLOCK, BLOCK, 0), (codec, 2 * BLOCK + 123, 3 * BLOCK, 0),
+                  (codec, PAPER_L, lp_paper, 0), (codec, 2 * BLOCK + 123, 3 * BLOCK, 1),
+                  (codec, PAPER_L, lp_paper, 1)]
+    main_err = None
+    for codec, n, lp, offset in cases:
+        acc, data, scales = _dequant_inputs(codec, n, lp, gen, offset)
+        got = acc.clone()
+        check(dequant_fold(got, data, scales, 0.75) is got, "dequant_fold returns acc")
+        torch.cuda.synchronize()
+        want = dequant_fold_plain(acc.clone(), data, scales, 0.75)
+        err = (got - want).abs().max().item()
+        equal = torch.equal(got, want)
+        tail = torch.equal(got[n:], acc[n:])
+        say(f"[check] dequant_fold {codec} n={n} Lp={lp} payload offset {offset} "
+            f"({'misaligned' if offset else 'aligned'}): max|kernel-plain|={err:.3e} "
+            f"bit-equal={equal} tail unchanged={tail} {'ok' if equal and tail else 'FAIL'}")
+        check(equal and tail, f"dequant_fold {codec} n={n} offset={offset} equals plain")
+        if (codec, n, offset) == ("int8", PAPER_L, 0):
+            main_err = err
+        del acc, data, scales, got, want
+        torch.cuda.empty_cache()
+    try:
+        dequant_fold(torch.zeros(BLOCK + 1, device="cuda"),
+                     torch.zeros(BLOCK + 1, dtype=torch.int8, device="cuda"),
+                     torch.ones(1, device="cuda"), 1.0)
+        raised = False
+    except ValueError as exc:
+        raised = "BLOCK" in str(exc)
+    say(f"[check] dequant_fold on an unpadded accumulator raises ValueError naming BLOCK: {raised}")
+    check(raised, "unpadded accumulator raises")
+    return main_err
+
+
+def phase_dequant_timing():
+    """dequant_fold at the compressed path's shape (one paper-width update
+    into the round's padded accumulator), int8 and fp16: kernel, plain
+    version and ``addcmul_`` in alternating rounds.  ``addcmul_`` needs a
+    payload of the accumulator's length, so it gets the payload padded to
+    Lp (0.003 % more bytes)."""
+    import torch
+    from repro_torch.kernels.dequant_fold import dequant_fold, dequant_fold_plain
+    from repro_torch.kernels.fedavg_reduce import BLOCK
+
+    n = PAPER_L
+    lp = -(-n // BLOCK) * BLOCK
+    nb = lp // BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for codec in ("int8", "fp16"):
+        acc, data, scales = _dequant_inputs(codec, n, lp, gen)
+        padded = torch.zeros(lp, dtype=data.dtype, device="cuda")
+        padded[:n] = data
+        w = 1e-3
+        ws = (w * scales)[:, None]
+        fns = {
+            "kernel": lambda: dequant_fold(acc, data, scales, w),
+            "plain": lambda: dequant_fold_plain(acc, data, scales, w),
+            "library": lambda: acc.view(nb, BLOCK).addcmul_(padded.view(nb, BLOCK), ws),
+        }
+        for fn in fns.values():
+            for _ in range(5):
+                fn()
+        samples = {k: [] for k in fns}
+        for r in range(TIMING_ROUNDS):
+            for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                samples[k] += cuda_times(fns[k], TIMED_PER_ROUND)
+        state = card_state()
+        q = {k: quartiles(v) for k, v in samples.items()}
+        itemsize = data.element_size()
+        nbytes = n * (4 + 4 + itemsize) + nb * 4
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = 2 * n / FP32_FLOPS_PER_S * 1e3
+        ms = q["kernel"][1]
+        for k, name in (("kernel", "dequant_fold kernel"), ("plain", "plain version"),
+                        ("library", "addcmul_")):
+            say(f"[time] {name} {codec} n={n} into Lp={lp}: median {q[k][1]:.4f} ms, "
+                f"quartiles {q[k][0]:.4f}-{q[k][2]:.4f} ms over {len(samples[k])} launches")
+        say(f"[time] dequant_fold {codec} bound {max(bound_bytes_ms, bound_ops_ms):.4f} ms "
+            f"({nbytes / 1e9:.4f} GB at 3.35 TB/s); kernel moves {nbytes / ms / 1e6:.1f} GB/s "
+            f"= {bound_bytes_ms / ms:.1%} of the bound; card after timing: {state}")
+        out[codec] = {
+            "ms": ms, "plain_ms": q["plain"][1], "library_ms": q["library"][1],
+            "quartiles_ms": q, "card_state": state,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "bytes": nbytes, "achieved_gb_s": nbytes / ms / 1e6,
+        }
+        del acc, data, scales, padded, fns
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_compressed_breakdown():
+    """Where the compressed round's server-side time goes at paper width,
+    per client update (host clock, each span ending in a synchronize,
+    median of 3 after one warm-up): the client's encode (flatten, delta,
+    codec, error feedback, on the card), the wire frame
+    (``CompressedUpdate.wire_bytes``: device-to-host copy and msgpack,
+    which the fold's byte accounting builds once per fold), and the fold
+    (``add_compressed`` with the frame size given, i.e. the kernel and its
+    set-up)."""
+    import torch
+    from repro_torch.federated.agg_engine import AggregationEngine
+    from repro_torch.federated.compression import ClientCompressor, parse_compression
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = init_femnist_cnn(gen, FemnistConfig(), "cuda")
+    local = tree_map(lambda t: t + 1e-3 * torch.randn(t.shape, generator=gen, device="cuda"),
+                     base)
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.monotonic() - t0, out
+
+    out = {}
+    for codec in ("int8", "fp16"):
+        comp = ClientCompressor(parse_compression(codec))
+        engine = AggregationEngine()
+        spans = {"encode_s": [], "wire_frame_s": [], "fold_s": []}
+        for i in range(4):
+            t_enc, update = host_s(lambda: comp.encode(base, local, base_round=1))
+            t_wire, wire = host_s(lambda: update.wire_bytes)
+            agg = engine.streaming(base=base, base_round=1)
+            t_fold, _ = host_s(lambda: agg.add(update, 64.0, block=True, wire_bytes=wire))
+            if i:  # the first is warm-up
+                spans["encode_s"].append(t_enc)
+                spans["wire_frame_s"].append(t_wire)
+                spans["fold_s"].append(t_fold)
+            agg.result()
+        med = {k: statistics.median(v) for k, v in spans.items()}
+        med["wire_bytes"] = wire
+        say(f"[compressed] paper width, {codec}, per update: encode {med['encode_s']:.4f} s, "
+            f"wire frame ({wire} B) {med['wire_frame_s']:.4f} s, fold {med['fold_s']:.4f} s")
+        out[codec] = med
+        del comp, engine, update, agg
+        torch.cuda.empty_cache()
+    return out
+
+
 def _femnist_clients(cfg, silos, opt, device):
     from repro_torch.federated import FLClient
     from repro_torch.models.fl_models import femnist_forward, softmax_cross_entropy
@@ -284,6 +469,7 @@ def phase_main_path(ckpt_root: Path):
     from repro_torch.checkpoint import ClientCheckpointManager, ServerCheckpointManager
     from repro_torch.data import make_classification_silos
     from repro_torch.federated import FLServer
+    from repro_torch.kernels.dequant_fold import dequant_fold
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce
     from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
     from repro_torch.optim import make_optimizer
@@ -318,10 +504,12 @@ def phase_main_path(ckpt_root: Path):
                       post_round_hook=count_hook, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     fedavg_reduce.launches = 0
+    dequant_fold.launches = 0
     t0 = time.monotonic()
     res = server.run(3)
     wall = time.monotonic() - t0
     launches = fedavg_reduce.launches
+    check(dequant_fold.launches == 0, "no dequant_fold launch on the dense path")
 
     rounds = []
     for r in res.rounds:
@@ -387,6 +575,136 @@ def phase_reference_check():
     return {"max_param_diff": diff, "max_loss_diff": dloss}
 
 
+def _server_trace(bus):
+    """A bus trace with the wall-clock times of the server's lifecycle
+    events taken out (fold events are on the round's virtual clock)."""
+    import dataclasses
+
+    out = []
+    for e in bus.trace:
+        d = dataclasses.asdict(e)
+        if type(e).__name__ in ("RoundDispatched", "CheckpointSaved", "RecoveryCompleted"):
+            d.pop("time_s")
+        out.append((type(e).__name__, d))
+    return out
+
+
+def phase_compressed_path():
+    """AsyncFLServer with int8 updates at the paper's FEMNIST width on the
+    card: 4 silos, 2 rounds, message sizes measured, no checkpoints; then
+    one fp16 round.  Every kernel's launch count is set to 0 just before
+    each run and read just after."""
+    import torch
+    from repro_torch.data import make_classification_silos
+    from repro_torch.federated import AsyncFLServer
+    from repro_torch.federated.compression import compressed_wire_bytes, parse_compression
+    from repro_torch.kernels.dequant_fold import dequant_fold
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = FemnistConfig()
+    out = {}
+    for codec, n_rounds, ratio in (("int8", 2, 4.0), ("fp16", 1, 2.0)):
+        silos = make_classification_silos(N_SILOS, 62, (28, 28, 1), [(64, 32)] * N_SILOS, seed=0)
+        clients = _femnist_clients(cfg, silos, make_optimizer("adamw", 1e-4), "cuda")
+        params0 = init_femnist_cnn(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        after_round = []
+        server = AsyncFLServer(
+            clients, params0, compression=codec, measure_round_messages=True,
+            post_round_hook=lambda r, p: after_round.append(dequant_fold.launches),
+            device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        dequant_fold.launches = 0
+        fedavg_reduce.launches = 0
+        t0 = time.monotonic()
+        res = server.run(n_rounds)
+        wall = time.monotonic() - t0
+        launches = {"dequant_fold": dequant_fold.launches,
+                    "fedavg_reduce": fedavg_reduce.launches}
+        peak = torch.cuda.max_memory_allocated()
+        want_bytes = compressed_wire_bytes(PAPER_L, parse_compression(codec))
+        rounds = []
+        for r in res.rounds:
+            log = r.message_log
+            rounds.append({"round": r.round_idx, "loss": r.metrics["loss"],
+                           "acc": r.metrics["acc"], "agg_time_s": r.agg_time_s,
+                           "train_time_s": r.train_time_s, "eval_time_s": r.eval_time_s,
+                           "c_msg_train_bytes": log.c_msg_train_bytes,
+                           "compression_ratio": log.compression_ratio})
+            say(f"[compressed] {codec} round {r.round_idx}: loss={r.metrics['loss']:.4f} "
+                f"acc={r.metrics['acc']:.4f} train_time_s={r.train_time_s:.3f} "
+                f"(encode and fold included: agg_time_s={r.agg_time_s:.4f}) "
+                f"eval_time_s={r.eval_time_s:.3f} c_msg_train {log.c_msg_train_bytes} B, "
+                f"ratio {log.compression_ratio:.4f}")
+        say(f"[compressed] {codec}: {n_rounds} rounds in {wall:.1f} s; dequant_fold launches "
+            f"after each round {after_round}, fedavg_reduce launches "
+            f"{launches['fedavg_reduce']}; max_memory_allocated {peak / 2**30:.2f} GiB")
+        check(after_round == [N_SILOS * (i + 1) for i in range(n_rounds)],
+              f"{N_SILOS} dequant_fold launches per {codec} round, got {after_round}")
+        check(launches["fedavg_reduce"] == 0, "no fedavg_reduce launch on the compressed path")
+        check(all(r["c_msg_train_bytes"] == want_bytes for r in rounds),
+              f"c_msg_train is compressed_wire_bytes(L, {codec}) = {want_bytes} B")
+        check(all(abs(r["compression_ratio"] - ratio) < 0.01 for r in rounds),
+              f"{codec} compression ratio about {ratio}")
+        check(all(math.isfinite(r["loss"]) for r in rounds), "finite losses")
+        check(all(t.is_cuda for t in tree_leaves(res.final_params)), "every parameter on cuda")
+        out[codec] = {"launches": launches, "launches_after_round": after_round,
+                      "rounds": rounds, "wall_s": wall, "max_memory_allocated": peak,
+                      "c_msg_train_bytes": want_bytes}
+        del server, clients, res, params0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_compressed_reference_check():
+    """Reduced FEMNIST, 3 silos, 3 int8 rounds with client_2 arriving after
+    a fixed deadline every round (parked, materialized against its round's
+    base, carried into the next round), the fold cost fixed so the virtual
+    clock is exact: the card (kernels) against the CPU (plain versions)
+    from the same weights.  Params within 1e-4 (SGD momentum at lr 1e-3;
+    see phase_reference_check) and equal event traces."""
+    import torch
+    from repro_torch.data import make_classification_silos
+    from repro_torch.federated import AsyncFLServer, DeterministicSchedule, FixedDeadline
+    from repro_torch.kernels.dequant_fold import dequant_fold
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = FemnistConfig(n_fc=2, fc_width=64)
+    params0 = init_femnist_cnn(torch.Generator().manual_seed(7), cfg, "cpu")
+    delays = {"client_0": 1.0, "client_1": 1.5, "client_2": 6.0}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        silos = make_classification_silos(3, 62, (28, 28, 1), [(48, 16), (32, 16), (40, 32)],
+                                          seed=2)
+        clients = _femnist_clients(cfg, silos, make_optimizer("sgdm", 1e-3), device)
+        server = AsyncFLServer(clients, params0, schedule=DeterministicSchedule(delays),
+                               round_deadline=FixedDeadline(t_round_s=3.0), fold_cost_s=0.01,
+                               compression="int8", device=device)
+        before = dequant_fold.launches
+        runs[device] = (server, server.run(3), dequant_fold.launches - before)
+    (cserver, cres, claunch), (pserver, pres, plaunch) = runs["cuda"], runs["cpu"]
+    diff = max((a.cpu() - b).abs().max().item()
+               for a, b in zip(tree_leaves(cres.final_params), tree_leaves(pres.final_params)))
+    dloss = max(abs(a.metrics["loss"] - b.metrics["loss"]) for a, b in zip(cres.rounds, pres.rounds))
+    same_trace = _server_trace(cserver.bus) == _server_trace(pserver.bus)
+    carried = [(r.carried_over, r.carried_in) for r in cres.rounds]
+    say(f"[reference] reduced FEMNIST, 3 int8 rounds with carry-over: max|param card - cpu|="
+        f"{diff:.3e}, max|loss card - cpu|={dloss:.3e} (tol 1e-4); event traces equal: "
+        f"{same_trace}; (carried over, carried in) per round {carried}; dequant_fold "
+        f"launches card {claunch}, cpu {plaunch}")
+    check(diff < 1e-4 and dloss < 1e-4, "compressed card run agrees with the CPU run")
+    check(same_trace, "compressed event traces equal")
+    check(carried[0] == (["client_2"], []) and carried[1][1] == ["client_2"],
+          "the slow silo is parked and carried in")
+    check(claunch > 0 and plaunch == 0, "the card run launched the kernel, the CPU run did not")
+    return {"max_param_diff": diff, "max_loss_diff": dloss, "traces_equal": same_trace,
+            "carried": carried}
+
+
 def main() -> int:
     import torch
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce  # noqa: F401 (fail early)
@@ -398,14 +716,20 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     main_err = phase_kernel_check()
+    dq_err = phase_dequant_check()
     timing = phase_kernel_timing()
+    dq_timing = phase_dequant_timing()
     fold = phase_fold_breakdown()
+    compressed_split = phase_compressed_breakdown()
     build_root = ROOT / "build"
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_ckpt_") as d:
         path = phase_main_path(Path(d))
+    compressed = phase_compressed_path()
     reference = phase_reference_check()
+    compressed_reference = phase_compressed_reference_check()
 
+    dq = dq_timing["int8"]
     kernels = [{
         "name": "fedavg_reduce",
         "route": "cuda",
@@ -418,12 +742,26 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+    }, {
+        "name": "dequant_fold",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dequant_fold.cu",
+        "replaces": "src/repro/kernels/fedavg_reduce.py:70",
+        "launches": compressed["int8"]["launches"]["dequant_fold"],
+        "max_abs_err": dq_err,
+        "ms": dq["ms"],
+        "plain_ms": dq["plain_ms"],
+        "bound_ms": dq["bound_ms"],
+        "bound_by": dq["bound_by"],
+        "library_ms": dq["library_ms"],
     }]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "kernels": kernels, "timing": timing, "fold": fold, "path": path,
-        "reference": reference, "seconds": time.monotonic() - t_start,
+        "reference": reference, "dequant_timing": dq_timing,
+        "compressed_breakdown": compressed_split, "compressed_path": compressed,
+        "compressed_reference": compressed_reference, "seconds": time.monotonic() - t_start,
     }, indent=1))
     say(f"[done] {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

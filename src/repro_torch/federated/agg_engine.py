@@ -1,8 +1,9 @@
 """Fused FedAvg aggregation engine — the server's per-round hot path.
 
-The port of the dense part of ``repro/federated/agg_engine.py``.  At
-cross-silo model sizes the FedAvg reduce is a pure memory-bound stream,
-so the engine's job is to touch every client byte once per round:
+The port of ``repro/federated/agg_engine.py`` but for structured updates
+and partial sums.  At cross-silo model sizes the FedAvg reduce is a pure
+memory-bound stream, so the engine's job is to touch every client byte
+once per round.  The barrier round (``aggregate``):
 
   flatten-once — each client tree is raveled through a cached
       :class:`RavelPlan` (leaf order, shapes and dtypes computed once per
@@ -18,24 +19,34 @@ rounded up to a multiple of ``BLOCK`` = 8192, so every row starts
 16-byte aligned and the kernel streams it with 16-byte loads.  The
 tail of each row is never written or read.  (At the paper's FEMNIST
 width ``L % 4 == 2``: a contiguous ``(N, L)`` buffer would misalign
-every odd row.)
+every odd row.)  A chunked mode (``reduce_flat(..., chunk_elems=...)``)
+reduces column blocks one at a time.
 
-A chunked mode (``reduce_flat(..., chunk_elems=...)``) reduces column
-blocks one at a time.  The streaming, structured and compressed folds,
-carry-over and partial sums of the reference come with later slices.
+The async round (``streaming``) folds clients one at a time into a
+:class:`StreamingAggregator`: O(L) accumulator memory, never an
+``(N, L)`` gather.  With a delta base (flat mode) it folds compressed
+updates straight into its fp32 accumulator: int8 and fp16 payloads
+through the ``dequant_fold`` kernel, top-k payloads with ``index_add_``.
+Late updates wait in a :class:`CarryOverBuffer` for the next round's
+fold, discounted by a :class:`StalenessPolicy`.  Structured folds
+(``streaming(schema=...)``, ``ROADMAP.md`` queue 1, item 11) and partial
+sums (``export_partial``/``fold_partial``, item 13) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, ClassVar, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..kernels.dequant_fold import dequant_fold, f32_scalar
 from ..kernels.fedavg_reduce import BLOCK, fedavg_reduce
 from ..utils.tree import TreeDef, path_str, tree_flatten, tree_flatten_with_path, tree_unflatten
+from .compression import QBLOCK, CompressedUpdate
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -68,21 +79,12 @@ class RavelPlan:
     row_stride: int
 
     def _check(self, tree: Any, index: int) -> List[torch.Tensor]:
-        pairs, treedef = tree_flatten_with_path(tree)
-        if treedef != self.treedef:
-            raise StructureMismatchError(
-                f"update {index} has structure {treedef}, expected {self.treedef}",
-                path="<root>",
-            )
-        for (path, leaf), shape in zip(pairs, self.shapes):
-            if tuple(leaf.shape) != shape:
-                where = path_str(path)
-                raise StructureMismatchError(
-                    f"update {index} leaf {where!r} has shape "
-                    f"{tuple(leaf.shape)}, expected {shape}",
-                    path=where,
-                )
-        return [leaf for _, leaf in pairs]
+        mismatch = _first_structure_mismatch(self.treedef, self.shapes, tree)
+        if mismatch is not None:
+            where, detail = mismatch
+            raise StructureMismatchError(f"update {index} at leaf {where!r}: {detail}",
+                                         path=where)
+        return tree_flatten(tree)[0]
 
     def flatten(self, tree: Any) -> torch.Tensor:
         """One tree -> contiguous fp32 ``(L,)``."""
@@ -196,6 +198,56 @@ class StructureMismatchError(ValueError):
         self.path = path
 
 
+def _leaf_paths(treedef: TreeDef) -> List[str]:
+    """The path string of every leaf slot of a treedef."""
+    dummy = tree_unflatten(treedef, list(range(treedef.num_leaves)))
+    return [path_str(p) or "<root>" for p, _ in tree_flatten_with_path(dummy)[0]]
+
+
+def _first_structure_mismatch(
+    ref_treedef: TreeDef,
+    ref_shapes: Tuple[Tuple[int, ...], ...],
+    params: Any,
+) -> Optional[Tuple[str, str]]:
+    """``(leaf path, detail)`` of the first divergence, or None if the
+    update matches the reference treedef + leaf shapes (dtypes are NOT
+    compared: mixed-precision clients fold through the fp32 cast)."""
+    leaves, treedef = tree_flatten(params)
+    shapes = tuple(tuple(np.shape(leaf)) for leaf in leaves)
+    if treedef == ref_treedef:
+        if shapes == ref_shapes:
+            return None
+        for path, got, want in zip(_leaf_paths(treedef), shapes, ref_shapes):
+            if got != want:
+                return path, f"leaf shape {got} != expected {want}"
+        return "<root>", "leaf shapes diverge"
+    ref_paths = _leaf_paths(ref_treedef)
+    got_paths = _leaf_paths(treedef)
+    for rp, gp in zip(ref_paths, got_paths):
+        if rp != gp:
+            return gp, f"unexpected leaf (expected {rp} here)"
+    if len(got_paths) != len(ref_paths):
+        longer = got_paths if len(got_paths) > len(ref_paths) else ref_paths
+        extra = longer[min(len(got_paths), len(ref_paths))]
+        kind = "extra" if len(got_paths) > len(ref_paths) else "missing"
+        return extra, (
+            f"{kind} leaf: update has {len(got_paths)} leaves, "
+            f"expected {len(ref_paths)}"
+        )
+    return "<root>", f"treedef {treedef} != expected {ref_treedef}"
+
+
+def _raise_structure_mismatch(mismatch: Tuple[str, str], client_id: Optional[str]) -> None:
+    path, detail = mismatch
+    who = f"client {client_id!r}" if client_id is not None else "an update"
+    raise StructureMismatchError(
+        f"update from {who} does not match the fold's tree structure "
+        f"at leaf {path!r}: {detail}",
+        client_id=client_id,
+        path=path,
+    )
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -303,3 +355,479 @@ class AggregationEngine:
         L = stacked.shape[1]
         outs = [fedavg_reduce(stacked[:, off:off + chunk], w) for off in range(0, L, chunk)]
         return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+    # -- streaming -----------------------------------------------------------
+    def streaming(
+        self,
+        base: Any = None,
+        base_round: Optional[int] = None,
+        schema: Any = None,
+    ) -> "StreamingAggregator":
+        """New per-round streaming accumulator (async client folding).
+
+        ``base`` switches the aggregator to flat/delta mode anchored on
+        the round's global weights — required to fold
+        :class:`~repro_torch.federated.compression.CompressedUpdate`
+        payloads (deltas against ``base``) and the same weighted average
+        for dense updates (the base cancels).  ``base_round`` tags the
+        base so compressed updates carrying a ``base_round`` of their own
+        are validated against it."""
+        if schema is not None:
+            raise NotImplementedError(
+                "structured folds (streaming(schema=...)): ROADMAP.md queue 1, "
+                "item 11 (structured updates)"
+            )
+        return StreamingAggregator(self, base=base, base_round=base_round)
+
+
+# ---------------------------------------------------------------------------
+# Carry-over and staleness
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CarryEntry:
+    """One late ``c_msg_train`` buffered for a later round's average.
+
+    The update was computed against ``origin_round``'s global weights; when
+    it is finally folded, its example weight is discounted by the staleness
+    factor ``discount ** (fold_round - origin_round)`` so fresh silos
+    dominate while the straggler's contribution still lands (never silently
+    dropped).
+
+    ``params`` must be a *dense* tree: a compressed update encodes a delta
+    against its origin round's base, which a later round no longer has —
+    the async engine dequantizes at park time
+    (:func:`~repro_torch.federated.compression.materialize_update`)."""
+
+    client_id: str
+    params: Any
+    weight: float       # raw example weight (n_samples), undiscounted
+    origin_round: int   # round whose deadline the message missed
+    late_by_s: float = 0.0  # virtual seconds past that round's deadline
+    # ||update - origin base||_2 at park time, when the engine had a base
+    # to measure against (DriftAwareDiscount's input); None = not measured.
+    origin_delta_norm: Optional[float] = None
+
+    def age_at(self, round_idx: int) -> int:
+        """Rounds of staleness when folded in ``round_idx`` (floor 1)."""
+        return max(1, round_idx - self.origin_round)
+
+
+class CarryOverBuffer:
+    """Late updates parked between rounds (deadline-driven partial rounds).
+
+    The async round engine defers any ``c_msg_train`` that misses its
+    round's ``T_round`` deadline into this buffer; the next round's
+    :class:`StreamingAggregator` drains it first (the messages are already
+    on the server), folding each entry with a staleness-discounted weight.
+    """
+
+    def __init__(self) -> None:
+        self._entries: List[CarryEntry] = []
+
+    def defer(self, entry: CarryEntry) -> None:
+        self._entries.append(entry)
+
+    def drain(self) -> List[CarryEntry]:
+        entries, self._entries = self._entries, []
+        return entries
+
+    def clients(self) -> List[str]:
+        return [e.client_id for e in self._entries]
+
+    def snapshot(self) -> List[CarryEntry]:
+        """Non-destructive view of the parked entries (oldest first)."""
+        return list(self._entries)
+
+    def pending_weight(self) -> float:
+        """Total raw (undiscounted) example weight awaiting a fold."""
+        return sum(e.weight for e in self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __bool__(self) -> bool:
+        return bool(self._entries)
+
+
+class StalenessPolicy:
+    """How much of a parked update's weight survives a late fold.
+
+    ``effective_multiplier`` maps one :class:`CarryEntry` to the factor
+    its raw example weight is scaled by when finally folded in
+    ``round_idx``.  Policies advertising ``uses_drift`` also receive
+    ``drift``: how far the global model moved since the update was parked,
+    relative to the update's own step size."""
+
+    uses_drift: ClassVar[bool] = False
+
+    def effective_multiplier(
+        self, entry: CarryEntry, round_idx: int, drift: Optional[float] = None
+    ) -> float:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class AgeDiscount(StalenessPolicy):
+    """``discount ** age`` with age floored at 1 round (the same
+    ``float(discount) ** int(age)`` expression as
+    :meth:`StreamingAggregator.add_stale`)."""
+
+    discount: float = 0.5
+
+    def effective_multiplier(
+        self, entry: CarryEntry, round_idx: int, drift: Optional[float] = None
+    ) -> float:
+        return float(self.discount) ** int(entry.age_at(round_idx))
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftAwareDiscount(StalenessPolicy):
+    """Convergence-aware staleness: the age discount, divided by
+    ``1 + drift_coef * (drift - 1)`` when the model has drifted more than
+    the parked update's own step (``drift > 1``); exactly
+    :class:`AgeDiscount` when drift is small or unmeasured."""
+
+    discount: float = 0.5
+    drift_coef: float = 1.0
+
+    uses_drift: ClassVar[bool] = True
+
+    def effective_multiplier(
+        self, entry: CarryEntry, round_idx: int, drift: Optional[float] = None
+    ) -> float:
+        base = float(self.discount) ** int(entry.age_at(round_idx))
+        if drift is None or drift <= 1.0:
+            return base
+        return base / (1.0 + float(self.drift_coef) * (float(drift) - 1.0))
+
+
+# ---------------------------------------------------------------------------
+# Streaming / incremental accumulation
+# ---------------------------------------------------------------------------
+
+def _leaf_nbytes(leaf: Any) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return int(np.asarray(leaf).nbytes)
+
+
+def _fold_compressed_into(acc: torch.Tensor, update: CompressedUpdate, w: float,
+                          padded_len: int) -> torch.Tensor:
+    """Fold one CompressedUpdate's delta into a padded fp32 accumulator, in
+    place: int8 and fp16 payloads through ``dequant_fold`` (the kernel on
+    a CUDA accumulator), top-k payloads with ``index_add_``.  The payload
+    is moved to the accumulator's device if it is elsewhere (a frame
+    decoded on the host)."""
+    dev = acc.device
+    if update.codec == "topk":
+        if update.indices is None:
+            raise ValueError("topk update has no indices")
+        idx = update.indices.to(dev, torch.int64)
+        vals = update.data.to(dev).to(torch.float32) * f32_scalar(w)
+        # The reference's acc.at[idx].add outside any Pallas kernel.  The
+        # indices are strictly increasing (the codec sorts them and
+        # deserialize_update rejects any other frame), so no two threads
+        # add to one element and the result is deterministic.
+        return acc.index_add_(0, idx, vals)
+    if update.codec in ("int8", "fp16"):
+        nb = padded_len // QBLOCK
+        if update.codec == "int8":
+            if update.scales is None:
+                raise ValueError("int8 update has no scales")
+            scales = update.scales.to(dev, torch.float32)
+            if tuple(scales.shape) != (nb,):
+                raise ValueError(
+                    f"int8 update has {tuple(scales.shape)} scales; expected ({nb},)"
+                )
+        else:
+            scales = torch.ones(nb, dtype=torch.float32, device=dev)
+        return dequant_fold(acc, update.data.to(dev), scales, w)
+    raise ValueError(f"unknown compressed codec {update.codec!r}")
+
+
+_PARTIAL = "partial sums: ROADMAP.md queue 1, item 13 (hierarchy)"
+
+
+class StreamingAggregator:
+    """Running weighted accumulation: fold clients in as they land.
+
+    ``add(params, weight)`` costs one pass over that client's bytes and
+    keeps only a single fp32 accumulator (updated in place), so
+    asynchronously arriving silos are aggregated in O(L) memory rather
+    than O(N·L).  ``result()`` normalizes by the running weight total,
+    casts back to the model dtypes, and resets all per-fold state so a
+    reused aggregator starts a fresh fold.
+
+    With ``base`` (the round's global weights) the aggregator runs in
+    *flat/delta mode*: one padded fp32 vector accumulator on the base's
+    device, every update folded as ``w * (update - base)`` and the result
+    read out as ``base + acc / wsum`` — the same weighted average (the
+    base cancels), but able to fold
+    :class:`~repro_torch.federated.compression.CompressedUpdate` payloads
+    directly through the ``dequant_fold`` kernel, never materializing a
+    dense fp32 update.
+
+    The base survives ``result()`` so a flat-mode aggregator can be
+    reused — but a reused aggregator folding the NEXT round's deltas must
+    first :meth:`rebase` onto that round's global weights.  Construct with
+    ``base_round`` to have :meth:`add_compressed` enforce the match
+    against each update's own ``base_round`` tag.
+    """
+
+    def __init__(
+        self,
+        engine: Optional[AggregationEngine] = None,
+        base: Any = None,
+        base_round: Optional[int] = None,
+    ) -> None:
+        self._engine = engine
+        self._plan: Optional[RavelPlan] = None
+        self._base_flat: Optional[torch.Tensor] = None
+        self._padded_len = 0
+        self.base_round: Optional[int] = None
+        if base is not None:
+            self._plan = plan_for(base)
+            self._base_flat = self._plan.flatten(base)
+            self._padded_len = -(-self._plan.total_elems // BLOCK) * BLOCK
+            self.base_round = base_round
+        elif base_round is not None:
+            raise ValueError("base_round tags a delta base: pass base= too")
+        self._acc: Optional[List[torch.Tensor]] = None
+        self._acc_flat: Optional[torch.Tensor] = None
+        self._dtypes: Optional[List[torch.dtype]] = None
+        self._treedef: Optional[TreeDef] = None
+        self._shapes: Optional[Tuple[Tuple[int, ...], ...]] = None
+        self._wsum = 0.0
+        self.n_clients = 0
+
+    def _reset(self) -> None:
+        """Clear per-fold state (`result()` calls this); the base/plan are
+        construction-time configuration and survive for reuse."""
+        self._acc = None
+        self._acc_flat = None
+        self._dtypes = None
+        self._treedef = None
+        self._shapes = None
+        self._wsum = 0.0
+        self.n_clients = 0
+
+    def _ensure_flat_acc(self) -> torch.Tensor:
+        if self._acc_flat is None:
+            assert self._base_flat is not None
+            self._acc_flat = torch.zeros(self._padded_len, dtype=torch.float32,
+                                         device=self._base_flat.device)
+        return self._acc_flat
+
+    def _sync(self) -> None:
+        """Wait for the accumulator's device (``add(..., block=True)``)."""
+        from .client import synchronize
+
+        acc = self._acc_flat if self._acc_flat is not None else (self._acc or [None])[0]
+        if isinstance(acc, torch.Tensor):
+            synchronize(acc.device)
+
+    @property
+    def mid_fold(self) -> bool:
+        """True while a fold is accumulating (clients added, no result yet)."""
+        return self.n_clients > 0 or self._acc is not None or self._acc_flat is not None
+
+    def rebase(self, base: Any, base_round: Optional[int] = None) -> None:
+        """Re-anchor a reused flat-mode aggregator on a new round's base
+        (same tree structure; rejected mid-fold, since the accumulator
+        holds deltas against the old base)."""
+        if self._plan is None or self._base_flat is None:
+            raise ValueError(
+                "rebase() applies to flat/delta mode: construct the "
+                "aggregator with streaming(base=global_params) first"
+            )
+        if self.mid_fold:
+            raise ValueError(
+                "cannot rebase mid-fold: the accumulator holds deltas "
+                "against the current base — call result() first"
+            )
+        plan = plan_for(base)
+        if plan.signature != self._plan.signature:
+            mismatch = _first_structure_mismatch(self._plan.treedef, self._plan.shapes, base)
+            raise StructureMismatchError(
+                "rebase() base does not match the aggregator's plan"
+                + (f" at leaf {mismatch[0]!r}: {mismatch[1]}" if mismatch else ""),
+                path=mismatch[0] if mismatch else None,
+            )
+        self._plan = plan
+        self._base_flat = plan.flatten(base)
+        self.base_round = base_round
+
+    def _check_structure(self, params: Any, client_id: Optional[str]) -> None:
+        if self._plan is not None:
+            ref_treedef, ref_shapes = self._plan.treedef, self._plan.shapes
+        elif self._treedef is not None and self._shapes is not None:
+            ref_treedef, ref_shapes = self._treedef, self._shapes
+        else:
+            return
+        mismatch = _first_structure_mismatch(ref_treedef, ref_shapes, params)
+        if mismatch is not None:
+            _raise_structure_mismatch(mismatch, client_id)
+
+    def add(
+        self,
+        params: Any,
+        weight: float,
+        block: bool = False,
+        wire_bytes: Optional[int] = None,
+        client_id: Optional[str] = None,
+    ) -> None:
+        """Fold one client in; ``block=True`` waits for the device to finish
+        the fold (the async round engine uses it to measure the true
+        per-fold cost).  ``wire_bytes`` is the transport frame size when it
+        differs from the dense bytes; compressed payloads route to
+        :meth:`add_compressed`.  ``client_id`` names the silo in
+        structure-mismatch errors."""
+        if isinstance(params, CompressedUpdate):
+            self.add_compressed(params, weight, block=block, wire_bytes=wire_bytes,
+                                client_id=client_id)
+            return
+        w = float(weight)
+        if w < 0:
+            raise ValueError("client weight must be non-negative")
+        self._check_structure(params, client_id)
+        w32 = f32_scalar(w)
+        if self._base_flat is not None:
+            assert self._plan is not None
+            acc = self._ensure_flat_acc()
+            flat = self._plan.flatten(params).to(acc.device)
+            acc[: self._plan.total_elems].add_((flat - self._base_flat) * w32)
+        elif self._acc is None:
+            leaves, self._treedef = tree_flatten(params)
+            self._dtypes = [leaf.dtype for leaf in leaves]
+            self._shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+            self._acc = [leaf.to(torch.float32) * w32 for leaf in leaves]
+        else:
+            for a, leaf in zip(self._acc, tree_flatten(params)[0]):
+                a.add_(leaf.to(a.device, torch.float32) * w32)
+        if block:
+            self._sync()
+        self._wsum += w
+        self.n_clients += 1
+        if self._engine is not None:
+            nbytes = sum(_leaf_nbytes(leaf) for leaf in tree_flatten(params)[0])
+            self._engine.stats.record(nbytes, wire_bytes)
+
+    def add_compressed(
+        self,
+        update: CompressedUpdate,
+        weight: float,
+        block: bool = False,
+        wire_bytes: Optional[int] = None,
+        client_id: Optional[str] = None,
+    ) -> None:
+        """Fold one compressed delta straight into the fp32 accumulator.
+
+        int8 / fp16 payloads go through ``dequant_fold`` — one pass over
+        the quantized bytes, no dense fp32 intermediate; top-k payloads
+        fold with a sparse ``index_add_``.  An update tagged with a
+        ``base_round`` must match the aggregator's own tag: it is a delta
+        against that round's global weights.  With the engine attached and
+        no ``wire_bytes`` given, the wire size is counted by serializing
+        the frame (``CompressedUpdate.wire_bytes``), as the reference does.
+        """
+        if self._base_flat is None or self._plan is None:
+            raise ValueError(
+                "compressed updates need a delta base: construct the "
+                "aggregator with streaming(base=global_params)"
+            )
+        update_round = update.base_round
+        if update_round is not None and update_round != self.base_round:
+            who = f" from client {client_id!r}" if client_id is not None else ""
+            raise ValueError(
+                f"compressed update{who} was encoded against base round "
+                f"{update_round}, but the aggregator's base is "
+                f"{'untagged' if self.base_round is None else f'round {self.base_round}'}"
+                " — rebase(new_base, base_round=...) the aggregator onto "
+                "the update's round before folding"
+            )
+        if update.total_elems != self._plan.total_elems:
+            raise ValueError(
+                f"compressed update has {update.total_elems} elements; "
+                f"the model has {self._plan.total_elems}"
+            )
+        w = float(weight)
+        if w < 0:
+            raise ValueError("client weight must be non-negative")
+        acc = self._ensure_flat_acc()
+        self._acc_flat = _fold_compressed_into(acc, update, w, self._padded_len)
+        if block:
+            self._sync()
+        self._wsum += w
+        self.n_clients += 1
+        if self._engine is not None:
+            wire = wire_bytes if wire_bytes is not None else update.wire_bytes
+            self._engine.stats.record(update.dense_bytes, wire)
+
+    def add_stale(
+        self,
+        params: Any,
+        weight: float,
+        stale_rounds: int,
+        discount: float,
+        block: bool = False,
+        client_id: Optional[str] = None,
+    ) -> float:
+        """Fold a carried-over (stale) update with a staleness-discounted
+        weight ``weight * discount**stale_rounds``; returns the effective
+        weight that entered the average."""
+        if stale_rounds < 1:
+            raise ValueError("a stale fold must be at least one round late")
+        if not 0.0 <= discount <= 1.0:
+            raise ValueError("staleness discount must be in [0, 1]")
+        w_eff = float(weight) * float(discount) ** int(stale_rounds)
+        self.add(params, w_eff, block=block, client_id=client_id)
+        return w_eff
+
+    def fold_carry(
+        self,
+        buffer: CarryOverBuffer,
+        round_idx: int,
+        discount: float,
+        block: bool = False,
+    ) -> List[Tuple[CarryEntry, float]]:
+        """Drain a :class:`CarryOverBuffer` into the accumulator, each entry
+        at its staleness discount (age = ``round_idx - origin_round``, at
+        least 1); returns the ``(entry, effective_weight)`` pairs."""
+        folded: List[Tuple[CarryEntry, float]] = []
+        for entry in buffer.drain():
+            w_eff = self.add_stale(
+                entry.params, entry.weight, entry.age_at(round_idx),
+                discount, block=block, client_id=entry.client_id,
+            )
+            folded.append((entry, w_eff))
+        return folded
+
+    def export_partial(self, region_id: str = "") -> Any:
+        raise NotImplementedError(_PARTIAL)
+
+    def fold_partial(self, partial: Any, block: bool = False) -> None:
+        raise NotImplementedError(_PARTIAL)
+
+    def result(self) -> Any:
+        if self._acc is None and self._acc_flat is None:
+            raise ValueError("no clients have been added")
+        if self._wsum <= 0:
+            raise ValueError("aggregation weights must sum to a positive value")
+        inv = f32_scalar(1.0 / self._wsum)
+        if self._acc_flat is not None:
+            assert self._plan is not None and self._base_flat is not None
+            L = self._plan.total_elems
+            vec = self._base_flat + self._acc_flat[:L] * inv
+            out = self._plan.unflatten(vec)
+        else:
+            assert self._acc is not None and self._dtypes is not None
+            assert self._treedef is not None
+            outs = [(a * inv).to(dt) for a, dt in zip(self._acc, self._dtypes)]
+            out = tree_unflatten(self._treedef, outs)
+        # Consume: every per-fold field goes with the accumulator — stale
+        # normalizer state would silently double-count on reuse.
+        self._reset()
+        if self._engine is not None:
+            self._engine.stats.n_calls += 1
+        return out

@@ -10,8 +10,9 @@ Gradients come from ``torch.autograd.grad`` on detached copies of the
 leaves, and the optimizer updates out of place, so the global tree the
 server hands every client is never written to.  Batches come off the
 silo as numpy and go to the client's ``device`` (the default
-``batch_fn``).  Wire compression and its error-feedback residual come
-with the compressed-updates slice.
+``batch_fn``).  With ``compression=`` the client owns a
+:class:`~repro_torch.federated.compression.ClientCompressor`, so its
+error-feedback residual stays with the silo across rounds.
 """
 from __future__ import annotations
 
@@ -90,6 +91,7 @@ class FLClient:
         batch_fn: Optional[Callable] = None,
         eval_fn: Optional[Callable[[Any, Any], Dict[str, torch.Tensor]]] = None,
         device: Device = "cuda",
+        compression: Any = None,
     ) -> None:
         self.client_id = client_id
         self.silo = silo
@@ -100,6 +102,16 @@ class FLClient:
         self.device = torch.device(device)
         self.batch_fn = batch_fn or (lambda b: to_device(b, self.device))
         self.eval_fn = eval_fn
+        # Client-owned compression state: the error-feedback residual
+        # stays with the silo, and AsyncFLServer prefers this compressor
+        # when the wire path is compressed.
+        self.compressor = None
+        if compression is not None:
+            from .compression import ClientCompressor, parse_compression
+
+            spec = parse_compression(compression)
+            if spec is not None:
+                self.compressor = ClientCompressor(spec)
 
     def _train_step(self, params: Any, opt_state: Any, batch: Any):
         leaves, treedef = tree_flatten(params)
@@ -135,6 +147,16 @@ class FLClient:
             n_samples=n_first_epoch,
             train_time_s=time.monotonic() - t0,
         )
+
+    def encode_update(self, global_params: Any, local_params: Any) -> Any:
+        """Compress this round's update with the client-owned
+        error-feedback buffer (requires ``compression=`` at init)."""
+        if self.compressor is None:
+            raise ValueError(
+                f"client {self.client_id!r} has no compressor; pass "
+                "compression= when constructing the FLClient"
+            )
+        return self.compressor.encode(global_params, local_params)
 
     # -- evaluation phase -----------------------------------------------------
     @torch.no_grad()

@@ -1,21 +1,29 @@
-"""FL message accounting (paper §3), dense wire path.
+"""FL message accounting (paper §3).
 
 The port of ``repro/federated/messages.py``.  Four message kinds per
 round: s_msg_train (server -> clients, initial weights), c_msg_train
 (client -> server, updated weights), s_msg_aggreg (server -> clients,
 aggregated weights), c_msg_test (client -> server, ML metrics).  Byte
 sizes are measured from the *actual serialized payloads* — the same v1
-blob and msgpack metrics frame the reference sends, so the counts agree
-byte for byte.  Compressed and structured ``c_msg_train`` legs come with
-the compressed-updates slice.
+blob, msgpack metrics frame and compressed update frame the reference
+sends, so the counts agree byte for byte.
+
+With wire compression the ``c_msg_train`` leg carries a quantized or
+sparsified delta: ``c_msg_train_bytes`` is then the *wire* size, and
+``c_msg_train_dense_bytes`` keeps the dense fp32 equivalent so reports
+can state the achieved compression ratio.  Structured ``c_msg_train``
+legs (``schema=``) and ``to_cost_model_sizes`` come with the
+structured-updates and builder slices (``ROADMAP.md`` queue 1, items 11
+and 9).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 from ..checkpoint._msgpack import packb
-from ..checkpoint.serializer import serialize_pytree
+from ..checkpoint.serializer import pytree_num_bytes, serialize_pytree
+from .compression import CompressionSpec, compressed_wire_bytes, parse_compression
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,10 +32,13 @@ class RoundMessageLog:
     c_msg_train_bytes: int
     s_msg_aggreg_bytes: int
     c_msg_test_bytes: int
-    # Wire-compression accounting, as in the reference ("none" = raw fp32
-    # tree frames, the only codec of this path).
+    # Wire-compression accounting: the codec the c_msg_train leg used
+    # ("none" = raw fp32 tree frames) and, when compressed, the dense
+    # fp32 size the same update would have cost uncompressed.
     codec: str = "none"
     c_msg_train_dense_bytes: Optional[int] = None
+    # Structured-update accounting (None = unstructured round, the only
+    # kind this port runs yet).
     group_wire_bytes: Optional[Dict[str, int]] = None
     group_dense_bytes: Optional[Dict[str, int]] = None
 
@@ -40,18 +51,51 @@ class RoundMessageLog:
             + self.c_msg_test_bytes
         )
 
+    @property
+    def compression_ratio(self) -> Optional[float]:
+        """dense / wire for the c_msg_train leg (None when uncompressed)."""
+        if self.c_msg_train_dense_bytes is None or self.c_msg_train_bytes <= 0:
+            return None
+        return self.c_msg_train_dense_bytes / self.c_msg_train_bytes
+
 
 def serialize_metrics(metrics: Dict[str, float]) -> bytes:
     """The wire form of a ``c_msg_test`` payload (msgpack, like weights)."""
     return packb({str(k): float(v) for k, v in metrics.items()})
 
 
-def measure_messages(params: Any, metrics_example: Dict[str, float]) -> RoundMessageLog:
-    """Measure real serialized sizes for one round's dense message set."""
+def measure_messages(
+    params: Any,
+    metrics_example: Dict[str, float],
+    compression: Union[None, str, CompressionSpec] = None,
+) -> RoundMessageLog:
+    """Measure real serialized sizes for one round's message set.
+
+    With ``compression`` the ``c_msg_train`` leg is the compressed frame
+    size (exact: compressed frames are fixed-width given the element
+    count), and the dense fp32 equivalent is reported alongside; the
+    server -> client legs always ship dense weights."""
     weight_bytes = len(serialize_pytree(params))
+    c_train_bytes = weight_bytes
+    codec = "none"
+    dense: Optional[int] = None
+    spec = parse_compression(compression)
+    if spec is not None:
+        from .agg_engine import plan_for
+
+        total = plan_for(params).total_elems
+        c_train_bytes = compressed_wire_bytes(total, spec)
+        codec = spec.codec
+        dense = total * 4
     return RoundMessageLog(
         s_msg_train_bytes=weight_bytes,
-        c_msg_train_bytes=weight_bytes,
+        c_msg_train_bytes=c_train_bytes,
         s_msg_aggreg_bytes=weight_bytes,
         c_msg_test_bytes=len(serialize_metrics(metrics_example)),
+        codec=codec,
+        c_msg_train_dense_bytes=dense,
     )
+
+
+def model_weight_bytes(params: Any) -> int:
+    return int(pytree_num_bytes(params))

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -31,9 +31,11 @@ from ..core.events import CheckpointSaved, EventBus, RecoveryCompleted, RoundDis
 from ..utils.tree import tree_map
 from .agg_engine import AggregationEngine
 from .aggregation import aggregate_metrics
-from .async_server import AsyncRoundEngine, FoldReport, InstantSchedule
 from .client import ClientResult, EvalResult, FLClient, synchronize
 from .messages import RoundMessageLog, measure_messages
+
+if TYPE_CHECKING:
+    from .async_server import AsyncRoundEngine, FoldReport
 
 Device = Union[str, torch.device]
 
@@ -103,7 +105,7 @@ class FLServer:
         # fold-level events on the round's virtual clock, the server
         # lifecycle events on the wall clock relative to run() start.
         self.bus = bus if bus is not None else EventBus()
-        self._round_engine = AsyncRoundEngine(self.agg_engine, bus=self.bus)
+        self._round_engine: Optional["AsyncRoundEngine"] = None  # built in _fold_phase
         self._wall_t0 = time.monotonic()
 
     def _wall(self) -> float:
@@ -186,7 +188,12 @@ class FLServer:
                 CheckpointSaved(self._wall(), round_idx, "server_remote", server_ckpt_time)
             )
 
-        log = measure_messages(self.params, metrics) if self.measure_round_messages else None
+        log = None
+        if self.measure_round_messages:
+            # AsyncFLServer sets _compression when the wire path is
+            # compressed; the log then carries wire vs dense c_msg_train.
+            log = measure_messages(self.params, metrics,
+                                   compression=getattr(self, "_compression", None))
         return RoundRecord(
             round_idx=round_idx,
             train_time_s=train_time,
@@ -205,10 +212,15 @@ class FLServer:
         )
 
     # ------------------------------------------------------------------
-    def _fold_phase(self, round_idx: int, results: Sequence[ClientResult]) -> FoldReport:
+    def _fold_phase(self, round_idx: int, results: Sequence[ClientResult]) -> "FoldReport":
         """Aggregate one round's c_msg_train set: the barrier protocol is
         the degenerate (all-messages-at-dispatch) schedule of the round
-        engine."""
+        engine (see async_server.AsyncFLServer for the others)."""
+        # Lazy import: async_server imports FLServer from here.
+        from .async_server import AsyncRoundEngine, InstantSchedule
+
+        if self._round_engine is None:
+            self._round_engine = AsyncRoundEngine(self.agg_engine, bus=self.bus)
         return self._round_engine.fold_round(round_idx, results, InstantSchedule())
 
     # ------------------------------------------------------------------

@@ -9,6 +9,7 @@ plain PyTorch version.  There is no override and no fallback.
 """
 from __future__ import annotations
 
+from .dequant_fold import dequant_fold
 from .fedavg_reduce import fedavg_reduce
 
-__all__ = ["fedavg_reduce"]
+__all__ = ["dequant_fold", "fedavg_reduce"]

@@ -1,4 +1,5 @@
-"""The port's fedavg_reduce against the reference's Pallas kernel.
+"""The port's fedavg_reduce (and, on the card, dequant_fold) against the
+reference's Pallas kernel and the plain versions.
 
 On the CPU the port's wrapper runs its plain version; the reference's
 kernel runs in Pallas interpret mode, as tests/test_kernels.py runs it.
@@ -149,3 +150,37 @@ def test_kernel_matches_plain_on_card(layout, dtype):
     assert fedavg_reduce.launches == before + 1
     want = fedavg_reduce_plain(xt, wt)
     torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("codec", ["int8", "fp16"])
+def test_dequant_fold_kernel_equals_plain_on_card(codec, offset):
+    """Card only: the dequant_fold kernel against its plain version on the
+    same inputs, bit for bit (both round w*s, (w*s)*x and the sum in fp32,
+    in that order), for the vector path (aligned payload) and the scalar
+    path (a payload slice one element off 16 bytes).  The accumulator's
+    elements past the payload stay as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.dequant_fold import dequant_fold, dequant_fold_plain
+
+    n, lp = 2 * BLOCK + 123, 3 * BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    if codec == "int8":
+        buf = torch.randint(-127, 128, (n + offset,), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        scales = torch.rand(lp // BLOCK, generator=gen, device="cuda") * 1e-2
+    else:
+        buf = (torch.randn(n + offset, generator=gen, device="cuda") * 1e-2).half()
+        scales = torch.ones(lp // BLOCK, device="cuda")
+    data = buf[offset:]
+    acc = torch.randn(lp, generator=gen, device="cuda")
+    got = acc.clone()
+    before = dequant_fold.launches
+    assert dequant_fold(got, data, scales, 2.5) is got
+    torch.cuda.synchronize()
+    assert dequant_fold.launches == before + 1
+    want = dequant_fold_plain(acc.clone(), data, scales, 2.5)
+    assert torch.equal(got, want)
+    assert torch.equal(got[n:], acc[n:])

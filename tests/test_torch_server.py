@@ -210,9 +210,35 @@ class _Late(InstantSchedule):
         return {cid: ClientArrival(cid, 1.5) for cid in client_ids}
 
 
-@pytest.mark.parametrize("kw", [{"deadline": object()}, {"base_params": {}},
-                                {"emit_partial": True}, {"schedule": _Late()}])
+@pytest.mark.parametrize("kw", [{"emit_partial": True}])
 def test_later_branches_raise_not_implemented(kw):
     args = {"schedule": InstantSchedule(), **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         AsyncRoundEngine().fold_round(1, _results(), **args)
+
+
+@pytest.mark.parametrize("branch", ["deadline", "base_params", "spread_schedule"])
+def test_branches_of_later_slices_now_fold(branch):
+    """The branches that raised in the first slice fold the round: a
+    deadline, a delta base, and arrivals spread in time all give the
+    barrier's weighted average and the streaming trace."""
+    from repro_torch.federated.async_server import FixedDeadline
+
+    args = {"schedule": InstantSchedule()}
+    if branch == "deadline":
+        args["deadline"] = FixedDeadline(t_round_s=1.0)
+    elif branch == "base_params":
+        args["base_params"] = {"w": torch.zeros(5)}
+    else:
+        args["schedule"] = _Late()
+    bus = EventBus()
+    report = AsyncRoundEngine(bus=bus, fold_cost_s=0.25).fold_round(1, _results(), **args)
+    np.testing.assert_allclose(report.params["w"].numpy(), (0 * 10 + 1 * 20 + 2 * 30) / 60,
+                               rtol=1e-6)
+    arrival = 1.5 if branch == "spread_schedule" else 0.0
+    assert report.round_span_s == pytest.approx(arrival + 3 * 0.25)
+    assert [e.fold_end_s for e in report.events] == \
+        pytest.approx([arrival + 0.25 * (i + 1) for i in range(3)])
+    names = [type(e).__name__ for e in bus.trace]
+    assert names.count("UpdateFolded") == 3 and names[-1] == "RoundClosed"
+    assert ("DeadlineExpired" in names) == (branch == "deadline")
