@@ -8,31 +8,43 @@ or of the JAX package.  In order it:
 
   1. prints the card (``nvidia-smi`` name and power limit) and turns TF32
      off for matmuls and cuDNN convolutions;
-  2. builds every kernel of the two paths from ``src/repro_torch/kernels/
-     csrc`` with nvcc (one process per source, all started together) and
-     prints ptxas's registers and shared memory per kernel;
+  2. builds every kernel of the port's paths from ``src/repro_torch/
+     kernels/csrc`` with nvcc (one process per source, all started
+     together) and prints ptxas's registers and shared memory per kernel;
   3. holds each kernel against its plain PyTorch version on the card, over
-     the CPU tests' sweep and at the paths' shapes (``dequant_fold`` bit
-     for bit, on aligned and misaligned payloads);
+     the CPU tests' sweeps and at the paths' shapes (``dequant_fold`` bit
+     for bit, on aligned and misaligned payloads; ``flash_attention`` over
+     MHA / GQA / MQA, windows, full attention, ragged S, fp32 and bf16, and
+     olmo-1b's prefill; ``ssd_chunk_scan`` over the reference's sweep, the
+     state continuation, the O(L) recurrence and mamba2-130m's prefill);
   4. times each kernel at its path's shape (CUDA events around each
      launch after warm-up; 4 rounds of 10 launches each of kernel, plain
      version and one PyTorch library call computing the same function,
-     in alternating order; median and quartiles) beside its bound, with
-     the card's clocks and power after; splits the dense fold at that
-     shape into flatten, reduce and unflatten, and the compressed round's
-     server work into encode, wire frame and fold;
+     where there is one, in alternating order; median and quartiles)
+     beside its bound, with the card's clocks and power after; splits the
+     dense fold at that shape into flatten, reduce and unflatten, and the
+     compressed round's server work into encode, wire frame and fold;
   5. runs the dense main path at the paper's FEMNIST width
      (``FemnistConfig()``, L = 164,187,070 parameters): 4 silos, 3 FedAvg
      rounds, client and server checkpoints, the server killed at round 3
      and restored from stable storage, message sizes measured;
   6. runs the compressed path at the same width: ``AsyncFLServer`` with
      int8 updates, 4 silos, 2 rounds, then one fp16 round, message sizes
-     measured.  For each path every kernel's launch count is set to 0
-     just before and read just after;
+     measured;
   7. runs a reduced FEMNIST model on the card and on the CPU (plain
      versions) from the same weights and compares them: 2 dense rounds,
      and 3 int8 rounds with a slow silo parked past a deadline and
-     carried into the next round.
+     carried into the next round;
+  8. serves olmo-1b and mamba2-130m at full width (bf16, random weights):
+     ``prefill_step`` on a (4, 2048) batch (16 ``flash_attention`` and 24
+     ``ssd_chunk_scan`` launches exactly), the serve driver (a (4, 32) and
+     a (4, 256) prompt token by token, 16 tokens decoded, no kernel
+     launch), and the prompt's prefill logits against its token-by-token
+     logits, in bf16 and again in fp32;
+  9. runs reduced olmo-1b and mamba2-130m in fp32 on the card and on the
+     CPU from the same weights: prefill logits and greedy tokens.
+For each path every kernel's launch count is set to 0 just before and
+read just after.
 
 Any failed check exits non-zero.  The line before the last is the
 ``{"kernels": [...]}`` record; the last is ``{"ok": true, "device": ...}``.
@@ -54,10 +66,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 PAPER_L = 164_187_070       # FemnistConfig() parameter count
 N_SILOS = 4
 TIMING_ROUNDS = 4       # rounds of kernel / plain / library, order alternating
 TIMED_PER_ROUND = 10    # launches of each per round: 40 samples each
+PREFILL_RUNS = 5        # timed full-width prefills a model, after one warm-up
+PREFILL_B, PREFILL_S = 4, 2048   # the zoo's full-width prefill batch
+KERNELS = ("fedavg_reduce", "dequant_fold", "flash_attention", "ssd_chunk_scan")
 
 
 def check(cond: bool, what: str) -> None:
@@ -96,6 +112,46 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
 def quartiles(xs) -> tuple:
     q1, q2, q3 = statistics.quantiles(xs, n=4)
     return q1, statistics.median(xs), q3
+
+
+def alternating(fns: dict) -> tuple:
+    """Quartiles (ms) of each of ``fns`` over TIMING_ROUNDS rounds of
+    TIMED_PER_ROUND launches, in alternating order, after 5 warm-up calls
+    of each; also the sample count."""
+    for fn in fns.values():
+        for _ in range(5):
+            fn()
+    samples = {k: [] for k in fns}
+    for r in range(TIMING_ROUNDS):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            samples[k] += cuda_times(fns[k], TIMED_PER_ROUND)
+    return {k: quartiles(v) for k, v in samples.items()}, len(samples[next(iter(fns))])
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.dequant_fold import dequant_fold
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+
+    return {"fedavg_reduce": fedavg_reduce, "dequant_fold": dequant_fold,
+            "flash_attention": flash_attention, "ssd_chunk_scan": ssd_chunk_scan}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch count, read just after a path is driven."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in fp32."""
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
 def card_state() -> str:
@@ -143,7 +199,7 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
-    libs = _build.build(["fedavg_reduce", "dequant_fold"])
+    libs = _build.build(["fedavg_reduce", "dequant_fold", "flash_attention", "ssd_scan"])
     say(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
         f"in {time.monotonic() - t0:.1f} s")
     for name in libs:
@@ -208,15 +264,8 @@ def phase_kernel_timing():
         "plain": lambda: fedavg_reduce_plain(x, w),
         "library": lambda: torch.matmul(w_norm, x),
     }
-    for fn in fns.values():
-        for _ in range(5):
-            fn()
-    samples = {k: [] for k in fns}
-    for r in range(TIMING_ROUNDS):
-        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            samples[k] += cuda_times(fns[k], TIMED_PER_ROUND)
+    q, n_samples = alternating(fns)
     state = card_state()
-    q = {k: quartiles(v) for k, v in samples.items()}
     ms, plain_ms, library_ms = q["kernel"][1], q["plain"][1], q["library"][1]
     nbytes = (n * L + L) * 4 + n * 4
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -225,7 +274,7 @@ def phase_kernel_timing():
     for k, name in (("kernel", "fedavg_reduce kernel"), ("plain", "plain version"),
                     ("library", "torch.matmul")):
         say(f"[time] {name} N={n} L={L} fp32: median {q[k][1]:.4f} ms, "
-            f"quartiles {q[k][0]:.4f}-{q[k][2]:.4f} ms over {len(samples[k])} launches")
+            f"quartiles {q[k][0]:.4f}-{q[k][2]:.4f} ms over {n_samples} launches")
     say(f"[time] bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s); kernel moves "
         f"{nbytes / ms / 1e6:.1f} GB/s = {bound_ms / ms:.1%} of the bound; card after "
         f"timing (clocks.sm, clocks.mem, power.draw, temperature): {state}")
@@ -361,15 +410,8 @@ def phase_dequant_timing():
             "plain": lambda: dequant_fold_plain(acc, data, scales, w),
             "library": lambda: acc.view(nb, BLOCK).addcmul_(padded.view(nb, BLOCK), ws),
         }
-        for fn in fns.values():
-            for _ in range(5):
-                fn()
-        samples = {k: [] for k in fns}
-        for r in range(TIMING_ROUNDS):
-            for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-                samples[k] += cuda_times(fns[k], TIMED_PER_ROUND)
+        q, n_samples = alternating(fns)
         state = card_state()
-        q = {k: quartiles(v) for k, v in samples.items()}
         itemsize = data.element_size()
         nbytes = n * (4 + 4 + itemsize) + nb * 4
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -378,7 +420,7 @@ def phase_dequant_timing():
         for k, name in (("kernel", "dequant_fold kernel"), ("plain", "plain version"),
                         ("library", "addcmul_")):
             say(f"[time] {name} {codec} n={n} into Lp={lp}: median {q[k][1]:.4f} ms, "
-                f"quartiles {q[k][0]:.4f}-{q[k][2]:.4f} ms over {len(samples[k])} launches")
+                f"quartiles {q[k][0]:.4f}-{q[k][2]:.4f} ms over {n_samples} launches")
         say(f"[time] dequant_fold {codec} bound {max(bound_bytes_ms, bound_ops_ms):.4f} ms "
             f"({nbytes / 1e9:.4f} GB at 3.35 TB/s); kernel moves {nbytes / ms / 1e6:.1f} GB/s "
             f"= {bound_bytes_ms / ms:.1%} of the bound; card after timing: {state}")
@@ -469,7 +511,6 @@ def phase_main_path(ckpt_root: Path):
     from repro_torch.checkpoint import ClientCheckpointManager, ServerCheckpointManager
     from repro_torch.data import make_classification_silos
     from repro_torch.federated import FLServer
-    from repro_torch.kernels.dequant_fold import dequant_fold
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce
     from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
     from repro_torch.optim import make_optimizer
@@ -503,13 +544,14 @@ def phase_main_path(ckpt_root: Path):
                       fault_hook=fault_hook, measure_round_messages=True,
                       post_round_hook=count_hook, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    fedavg_reduce.launches = 0
-    dequant_fold.launches = 0
+    zero_counts()
     t0 = time.monotonic()
     res = server.run(3)
     wall = time.monotonic() - t0
-    launches = fedavg_reduce.launches
-    check(dequant_fold.launches == 0, "no dequant_fold launch on the dense path")
+    after = counts()
+    launches = after["fedavg_reduce"]
+    check(after == dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": launches},
+          f"only fedavg_reduce launches on the dense path, got {after}")
 
     rounds = []
     for r in res.rounds:
@@ -599,7 +641,6 @@ def phase_compressed_path():
     from repro_torch.federated import AsyncFLServer
     from repro_torch.federated.compression import compressed_wire_bytes, parse_compression
     from repro_torch.kernels.dequant_fold import dequant_fold
-    from repro_torch.kernels.fedavg_reduce import fedavg_reduce
     from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
     from repro_torch.optim import make_optimizer
     from repro_torch.utils.tree import tree_leaves
@@ -616,13 +657,11 @@ def phase_compressed_path():
             post_round_hook=lambda r, p: after_round.append(dequant_fold.launches),
             device="cuda")
         torch.cuda.reset_peak_memory_stats()
-        dequant_fold.launches = 0
-        fedavg_reduce.launches = 0
+        zero_counts()
         t0 = time.monotonic()
         res = server.run(n_rounds)
         wall = time.monotonic() - t0
-        launches = {"dequant_fold": dequant_fold.launches,
-                    "fedavg_reduce": fedavg_reduce.launches}
+        launches = counts()
         peak = torch.cuda.max_memory_allocated()
         want_bytes = compressed_wire_bytes(PAPER_L, parse_compression(codec))
         rounds = []
@@ -643,7 +682,8 @@ def phase_compressed_path():
             f"{launches['fedavg_reduce']}; max_memory_allocated {peak / 2**30:.2f} GiB")
         check(after_round == [N_SILOS * (i + 1) for i in range(n_rounds)],
               f"{N_SILOS} dequant_fold launches per {codec} round, got {after_round}")
-        check(launches["fedavg_reduce"] == 0, "no fedavg_reduce launch on the compressed path")
+        check(launches == dict.fromkeys(KERNELS, 0) | {"dequant_fold": N_SILOS * n_rounds},
+              f"only dequant_fold launches on the compressed path, got {launches}")
         check(all(r["c_msg_train_bytes"] == want_bytes for r in rounds),
               f"c_msg_train is compressed_wire_bytes(L, {codec}) = {want_bytes} B")
         check(all(abs(r["compression_ratio"] - ratio) < 0.01 for r in rounds),
@@ -705,6 +745,432 @@ def phase_compressed_reference_check():
             "carried": carried}
 
 
+# ---------------------------------------------------------------------------
+# The model zoo's serve path: flash_attention and ssd_chunk_scan
+# ---------------------------------------------------------------------------
+
+def _qkv(B, S, H, KV, D, dtype, gen):
+    import torch
+
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+
+
+def phase_flash_check():
+    """flash_attention against its plain version (``causal_attention`` /
+    ``full_attention``) on the card: MHA, GQA 4:1 and MQA, windows 16, 64
+    and 100, full attention, ragged S (100, 300), fp32 (2e-5) and bf16
+    (2e-2; the plain version rounds the softmax weights to bf16, the
+    kernel keeps them in fp32), and olmo-1b's prefill (B 4, S 2048, 16
+    heads of 128, bf16, causal), the main path's call, whose error is
+    returned.
+
+    A bf16 output is also held, as a whole, against the plain version
+    computed in fp32 from the same bf16 inputs: relative L2 within 1e-2.
+    The kernel's bf16 rounding of the probabilities and of the output
+    alone gives a few 1e-3; the elementwise 2e-2 is loose where |o| is
+    small (a long causal row of N(0, 1) inputs averages to |o| ~ 0.05),
+    and this catches a fault that shifts many rows by less than that."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        cases += [(2, 256, 4, 4, 64, True, None, dt), (2, 256, 8, 2, 64, True, None, dt),
+                  (2, 256, 4, 1, 128, True, None, dt)]
+        cases += [(1, 256, 4, 2, 64, True, w, dt) for w in (16, 64, 100)]
+        cases += [(2, 128, 4, 4, 64, False, None, dt), (2, 100, 4, 2, 128, True, None, dt),
+                  (2, 300, 4, 2, 128, True, None, dt), (1, 300, 4, 4, 64, False, None, dt)]
+    main_case = (PREFILL_B, PREFILL_S, 16, 16, 128, True, None, torch.bfloat16)
+    cases.append(main_case)
+    main_err = None
+    for case in cases:
+        B, S, H, KV, D, causal, window, dt = case
+        q, k, v = _qkv(B, S, H, KV, D, dt, gen)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        err = (got.float() - want.float()).abs().max().item()
+        ok = got.dtype == dt and bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), atol=tol, rtol=tol)
+        l2 = ""
+        if dt == torch.bfloat16:
+            del want
+            want = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                         window=window)
+            rel = rel_l2(got, want)
+            ok = ok and rel <= 1e-2
+            l2 = f", relative L2 against fp32 plain {rel:.3e} (tol 1e-2)"
+        say(f"[check] flash_attention B={B} S={S} H={H} KV={KV} D={D} "
+            f"{'causal' if causal else 'full'} window={window} {str(dt)[6:]}: "
+            f"max|kernel-plain|={err:.3e} (tol {tol:g} abs+rel){l2} {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention {case} within {tol}")
+        if case == main_case:
+            main_err = err
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def _ssd_inputs(B, L, H, P, N, dtype, gen):
+    """The reference tests' distribution: x, B, C ~ N(0, 1), dt =
+    softplus(N(0, 1)), A = -exp(N(0, 1)); dt and A fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return (randn(B, L, H, P).to(dtype), F.softplus(randn(B, L, H)), -torch.exp(randn(H)),
+            randn(B, L, N).to(dtype), randn(B, L, N).to(dtype))
+
+
+def _scaled_close(got, want, tol: float):
+    """allclose with the absolute part taken relative to the output's scale
+    (``tol * max(1, max|want|)``): the scan sums chunk-long runs of products
+    as large as its outputs, so another summation order leaves absolute
+    errors in proportion to the largest terms, also where an element
+    cancels to near 0."""
+    import torch
+
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), atol=tol * scale, rtol=tol)
+    return ok, err
+
+
+def phase_ssd_check():
+    """ssd_chunk_scan against its plain version on the card: the reference
+    tests' sweep (tests/test_kernels.py:99-150, fp32, 2e-5 scaled), the
+    initial-state continuation and the O(L) recurrence ``ssd_reference``
+    (1e-3, as there), and mamba2-130m's prefill (B 4, L 2048, 24 heads of
+    P 64, N 128, chunk 256) in fp32 and in bf16 (the main path's call; y
+    comes back in bf16, 2e-2, and as a whole within 1e-2 relative L2 of
+    the plain version computed in fp32 from the same bf16 inputs: the
+    output's rounding alone gives ~1e-3).  At that shape the kernel's
+    three outputs are also held against its plain version alone; the
+    largest error of those, in bf16, is returned."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk, ssd_intra_chunk_plain)
+    from repro_torch.models.mamba2 import ssd_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    full = (PREFILL_B, PREFILL_S, 24, 64, 128, 256)
+    cases = [((2, 64, 4, 16, 32, 16), torch.float32), ((2, 128, 8, 32, 64, 32), torch.float32),
+             ((2, 256, 8, 64, 128, 64), torch.float32), ((2, 200, 4, 32, 16, 100), torch.float32),
+             (full, torch.float32), (full, torch.bfloat16)]
+    main_err = None
+    for (B, L, H, P, N, Q), dt in cases:
+        args = _ssd_inputs(B, L, H, P, N, dt, gen)
+        y, h = ssd_chunk_scan(*args, chunk=Q)
+        torch.cuda.synchronize()
+        y_want, h_want = ssd_chunk_scan_plain(*args, Q)
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        ok_y, err_y = _scaled_close(y, y_want, tol)
+        ok_h, err_h = _scaled_close(h, h_want, 2e-5)
+        l2 = ""
+        if dt == torch.bfloat16:
+            del y_want
+            y_want, _ = ssd_chunk_scan_plain(*(t.float() for t in args), Q)
+            rel = rel_l2(y, y_want)
+            ok_y = ok_y and rel <= 1e-2
+            l2 = f", y relative L2 against fp32 plain {rel:.3e} (tol 1e-2)"
+        say(f"[check] ssd_chunk_scan B={B} L={L} H={H} P={P} N={N} chunk={Q} {str(dt)[6:]}: "
+            f"max|kernel-plain| y {err_y:.3e} (tol {tol:g} scaled), state {err_h:.3e} "
+            f"(tol 2e-05 scaled){l2} {'ok' if ok_y and ok_h else 'FAIL'}")
+        check(ok_y and ok_h and y.dtype == dt, f"ssd_chunk_scan {(B, L, H, P, N, Q, dt)}")
+        if (B, L, H, P, N, Q) == full:
+            errs = []
+            for name, g, w in zip(("y_diag", "states", "a_cs"), ssd_intra_chunk(*args, Q),
+                                  ssd_intra_chunk_plain(*args, Q)):
+                ok, err = _scaled_close(g, w, 2e-5)
+                errs.append(err)
+                say(f"[check]   kernel alone, {name}: max|kernel-plain|={err:.3e} "
+                    f"(tol 2e-05 scaled) {'ok' if ok else 'FAIL'}")
+                check(ok, f"ssd_intra_chunk {name} at {full} {dt}")
+            if dt == torch.bfloat16:
+                main_err = max(errs)
+        del args, y, h, y_want, h_want
+
+    x, dt_, A, Bm, Cm = _ssd_inputs(1, 128, 4, 8, 16, torch.float32, gen)
+    y_full, h_full = ssd_chunk_scan(x, dt_, A, Bm, Cm, chunk=32)
+    _, h1 = ssd_chunk_scan(x[:, :64], dt_[:, :64], A, Bm[:, :64], Cm[:, :64], chunk=32)
+    y2, h2 = ssd_chunk_scan(x[:, 64:], dt_[:, 64:], A, Bm[:, 64:], Cm[:, 64:], chunk=32,
+                            initial_state=h1)
+    y_seq, h_seq = ssd_reference(x, dt_, A, Bm, Cm)
+    results = {"continuation y": _scaled_close(y2, y_full[:, 64:], 1e-3),
+               "continuation state": _scaled_close(h2, h_full, 1e-3),
+               "O(L) recurrence y": _scaled_close(y_full, y_seq, 1e-3),
+               "O(L) recurrence state": _scaled_close(h_full, h_seq, 1e-3)}
+    for name, (ok, err) in results.items():
+        say(f"[check] ssd_chunk_scan {name}: max|diff|={err:.3e} (tol 1e-3 scaled) "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"ssd_chunk_scan {name}")
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def phase_zoo_timing():
+    """Both kernels at the full-width prefill shapes: kernel, plain version
+    and (flash only) ``F.scaled_dot_product_attention`` in alternating
+    rounds, beside their bounds.
+
+    flash_attention, olmo-1b: q, k, v (4, 2048, 16, 128) bf16, causal.  The
+    products take 2·B·H·D·S·(S+1) flops (each query row meets its i + 1
+    keys in two products of 2·D), on the bf16 tensor cores' 989 TFLOP/s;
+    the bytes are q, k, v and o read or written once.
+
+    ssd_chunk_scan, mamba2-130m: the kernel alone (the intra-chunk part) on
+    x (4, 2048, 24, 64), B, C (4, 2048, 128) in bf16, dt fp32, chunk 256.
+    Its arithmetic is the reference's, in fp32, counted where the decay
+    is not zero (s <= l, as the flash count is causal): y Q·(Q+1)·P and
+    the state 2·P·N·Q per (b, chunk, head), the scores Q·(Q+1)·N per
+    (b, chunk), at 67 TFLOP/s; the bytes are x, B, C, dt read once and
+    y, the states and a_cs (fp32) written once.  No single PyTorch call
+    computes it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk, ssd_intra_chunk_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+
+    B, S, H, D = PREFILL_B, PREFILL_S, 16, 128
+    q, k, v = _qkv(B, S, H, H, D, torch.bfloat16, gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    q4, n = alternating({
+        "kernel": lambda: flash_attention(q, k, v),
+        "plain": lambda: flash_attention_plain(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+    })
+    flops = 2 * B * H * D * S * (S + 1)
+    nbytes = 4 * B * S * H * D * 2
+    out["flash_attention"] = _bound_row(q4, n, flops, BF16_FLOPS_PER_S, nbytes,
+                                        "flash_attention olmo-1b prefill (4, 2048, 16, 128) bf16",
+                                        "F.scaled_dot_product_attention(is_causal=True)")
+    del q, k, v, qt, kt, vt
+
+    B, L, H, P, N, Q = PREFILL_B, PREFILL_S, 24, 64, 128, 256
+    args = _ssd_inputs(B, L, H, P, N, torch.bfloat16, gen)
+    q4, n = alternating({
+        "kernel": lambda: ssd_intra_chunk(*args, Q),
+        "plain": lambda: ssd_intra_chunk_plain(*args, Q),
+    })
+    C = L // Q
+    flops = B * C * H * (Q * (Q + 1) * P + 2 * P * N * Q) + B * C * Q * (Q + 1) * N
+    nbytes = (B * L * H * P * 2 + 2 * B * L * N * 2 + B * L * H * 4
+              + B * C * H * (Q * P + P * N + Q) * 4)
+    row = _bound_row(q4, n, flops, FP32_FLOPS_PER_S, nbytes,
+                     "ssd_chunk_scan kernel alone, mamba2-130m prefill (4, 2048, 24, 64), N 128, "
+                     "chunk 256, bf16", None)
+    scan, _ = alternating({"kernel": lambda: ssd_chunk_scan(*args, chunk=Q),
+                           "plain": lambda: ssd_chunk_scan_plain(*args, Q)})
+    row["whole_scan_ms"], row["whole_scan_plain_ms"] = scan["kernel"][1], scan["plain"][1]
+    say(f"[time] the whole scan (kernel + inter-chunk torch ops) {scan['kernel'][1]:.4f} ms, "
+        f"plain ssd_chunked {scan['plain'][1]:.4f} ms")
+    out["ssd_chunk_scan"] = row
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bound_row(q4: dict, n: int, flops: float, peak: float, nbytes: float, what: str,
+               library: "str | None") -> dict:
+    state = card_state()
+    ops_ms = flops / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    ms = q4["kernel"][1]
+    names = (("kernel", "kernel"), ("plain", "plain version")) + (
+        (("library", library),) if library else ())
+    for k, name in names:
+        say(f"[time] {what}: {name} median {q4[k][1]:.4f} ms, quartiles "
+            f"{q4[k][0]:.4f}-{q4[k][2]:.4f} ms over {n} launches")
+    say(f"[time] bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s "
+        f"= {ops_ms:.4f} ms; {nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms); kernel "
+        f"{flops / ms / 1e9:.1f} TFLOP/s = {bound_ms / ms:.1%} of the bound; card after timing: "
+        f"{state}")
+    return {"ms": ms, "plain_ms": q4["plain"][1],
+            "library_ms": q4["library"][1] if library else None,
+            "quartiles_ms": q4, "card_state": state, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes, "achieved_tflop_s": flops / ms / 1e9}
+
+
+def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, kernel: str,
+                 per_prefill: int, tol: float, full_prefill: bool) -> dict:
+    """One zoo model at full width on the card, weights random from seed 0:
+    ``prefill_step`` on a (4, 2048) batch, PREFILL_RUNS times after a
+    warm-up (``full_prefill``; median and quartiles), then the serve
+    driver (token-by-token prefill of a (4, prompt_len) prompt through
+    ``serve_step``, then greedy decoding), then ``prefill_step`` on that
+    prompt, whose logits must agree with the token-by-token ones at every
+    prompt position within ``tol`` (relative L2 over the whole tensor).
+    Every kernel's count is set to 0 just before each run and read just
+    after: ``kernel`` launches ``per_prefill`` times a prefill and never
+    in decode."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch).with_overrides(dtype=dtype, param_dtype=dtype)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = model.param_count(params)
+    prefill = make_prefill_step(model)
+    only = dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(0)
+    out = {"arch": arch, "dtype": dtype, "params": n_params}
+    tag = f"[zoo] {arch} {dtype}"
+
+    if full_prefill:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+        prefill(params, {"tokens": tokens})  # warm-up: cuBLAS and the kernels' first load
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, all_launches = [], []
+        for _ in range(PREFILL_RUNS):
+            logits = None
+            zero_counts()
+            t0 = time.monotonic()
+            logits = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            all_launches.append(counts())
+        launches = all_launches[-1]
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        q1, med, q3 = quartiles(times)
+        say(f"{tag}: {n_params:,} params; prefill_step on ({PREFILL_B}, {PREFILL_S}) median "
+            f"{med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over {PREFILL_RUNS} "
+            f"runs (each {', '.join(f'{t * 1e3:.1f}' for t in times)}), logits "
+            f"{tuple(logits.shape)} {str(logits.dtype)[6:]} finite={finite}; launches a run "
+            f"{launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
+        check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, cfg.vocab_size)
+              and logits.dtype == torch.float32 and finite, f"{arch} prefill logits")
+        check(all(n == only | {kernel: per_prefill} for n in all_launches),
+              f"{arch} prefill: exactly {per_prefill} {kernel} launches a run, got {all_launches}")
+        out.update(prefill_s=med, prefill_s_quartiles=(q1, med, q3), prefill_s_runs=times,
+                   prefill_launches=launches, prefill_peak_bytes=peak)
+        del logits, tokens
+
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, prompt_len))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = generate(model, params, prompt, decode_tokens, keep_prompt_logits=True)
+    serve_launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms_tok = res.decode_s / max(decode_tokens - 1, 1) * 1e3
+    say(f"{tag}: serve driver, ({PREFILL_B}, {prompt_len}) prompt token by token in "
+        f"{res.prefill_s:.3f} s, {decode_tokens} tokens decoded at {ms_tok:.2f} ms/token; "
+        f"launches {serve_launches}; first sequence {res.tokens[0].tolist()}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    check(serve_launches == only, f"{arch} serve: no kernel launch, got {serve_launches}")
+    check(tuple(res.tokens.shape) == (PREFILL_B, decode_tokens)
+          and bool(torch.isfinite(res.last_logits).all()), f"{arch} serve output")
+
+    zero_counts()
+    logits = prefill(params, {"tokens": prompt})
+    launches = counts()
+    err = rel_l2(logits, res.prompt_logits)
+    max_abs = (logits - res.prompt_logits).abs().max().item()
+    agree = (logits.argmax(-1) == res.prompt_logits.argmax(-1)).float().mean().item()
+    say(f"{tag}: prefill_step on that prompt vs its token-by-token logits: relative L2 "
+        f"{err:.3e} (tol {tol:g}), max|diff| {max_abs:.3e} (max|logit| "
+        f"{logits.abs().max().item():.3f}), argmax agreement {agree:.4f}; launches {launches}")
+    check(launches == only | {kernel: per_prefill}, f"{arch} prompt prefill launches")
+    check(err <= tol, f"{arch} {dtype} prefill agrees with token-by-token serving within {tol}")
+    out.update(serve_prefill_s=res.prefill_s, decode_ms_per_token=ms_tok,
+               serve_launches=serve_launches, prompt_prefill_launches=launches,
+               serve_peak_bytes=peak,
+               prefill_vs_serve_rel_l2=err, prefill_vs_serve_max_abs=max_abs,
+               argmax_agreement=agree, tokens_first_sequence=res.tokens[0].tolist())
+    del params, logits, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_paths():
+    """The serve path at full width, olmo-1b then mamba2-130m: in bf16 (the
+    configs' dtype) with the 2048-token prefill and the serve driver, then
+    the prefill-against-serving check again in fp32.
+
+    Tolerances of prefill against token-by-token serving (relative L2 over
+    all logits): fp32 1e-3, about 20x what plain prefill against plain
+    decode reads on the CPU through 24 layers of a reduced mamba2
+    (6e-5): the two paths are the same arithmetic in another order.  In
+    bf16 the paths round differently (the kernel keeps its softmax
+    weights and the scan its products in fp32, the decode path rounds to
+    bf16 at other places), and a random network carries those roundings
+    through every layer.  On the CPU at full width, olmo-1b with the
+    kernel's rounding imitated in the prefill reads 1.66e-2, so 5e-2;
+    mamba2-130m's plain prefill against its plain decode reads 0.197, so
+    0.5 there, which catches only gross faults (the fp32 check holds the
+    scan tightly)."""
+    out = {}
+    out["olmo-1b bf16"] = _serve_check("olmo-1b", "bfloat16", 32, 16, "flash_attention", 16,
+                                       5e-2, True)
+    out["mamba2-130m bf16"] = _serve_check("mamba2-130m", "bfloat16", 256, 16, "ssd_chunk_scan",
+                                           24, 0.5, True)
+    out["olmo-1b fp32"] = _serve_check("olmo-1b", "float32", 32, 2, "flash_attention", 16,
+                                       1e-3, False)
+    out["mamba2-130m fp32"] = _serve_check("mamba2-130m", "float32", 256, 2, "ssd_chunk_scan",
+                                           24, 1e-3, False)
+    return out
+
+
+def phase_zoo_reference_check():
+    """Reduced olmo-1b and mamba2-130m in fp32 from the same weights on the
+    card (kernels) and on the CPU (plain versions): prefill logits on a
+    (2, 64) batch within 1e-4 (abs and rel; fp32 summed in other orders,
+    the CPU parity tests' tolerance) and the serve driver's greedy tokens
+    equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_map
+
+    out = {}
+    for arch, kernel in (("olmo-1b", "flash_attention"), ("mamba2-130m", "ssd_chunk_scan")):
+        cfg = get_config(arch).reduced().with_overrides(dtype="float32", param_dtype="float32")
+        model = get_model(cfg)
+        params = model.init(torch.Generator().manual_seed(3), "cpu")
+        rng = np.random.default_rng(4)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(device), params)
+            zero_counts()
+            logits = make_prefill_step(model)(p, {"tokens": tokens.to(device)})
+            toks = generate(model, p, prompt.to(device), 6).tokens
+            runs[device] = (logits.cpu(), toks.cpu(), counts()[kernel])
+        (cl, ct, cn), (pl, pt, pn) = runs["cuda"], runs["cpu"]
+        err = (cl - pl).abs().max().item()
+        ok = torch.allclose(cl, pl, atol=1e-4, rtol=1e-4)
+        same = torch.equal(ct, pt)
+        say(f"[reference] reduced {arch} fp32, card against CPU: max|logits diff| {err:.3e} "
+            f"(tol 1e-4 abs+rel) {'ok' if ok else 'FAIL'}; greedy tokens equal: {same}; "
+            f"{kernel} launches card {cn}, cpu {pn}")
+        check(ok and same, f"reduced {arch}: card agrees with the CPU")
+        check(cn == cfg.n_layers and pn == 0, f"{arch}: the card run launched the kernel once a "
+              f"layer, the CPU run not at all")
+        out[arch] = {"max_logits_diff": err, "tokens_equal": same}
+    return out
+
+
 def main() -> int:
     import torch
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce  # noqa: F401 (fail early)
@@ -717,8 +1183,11 @@ def main() -> int:
     phase_build()
     main_err = phase_kernel_check()
     dq_err = phase_dequant_check()
+    flash_err = phase_flash_check()
+    ssd_err = phase_ssd_check()
     timing = phase_kernel_timing()
     dq_timing = phase_dequant_timing()
+    zoo_timing = phase_zoo_timing()
     fold = phase_fold_breakdown()
     compressed_split = phase_compressed_breakdown()
     build_root = ROOT / "build"
@@ -728,6 +1197,8 @@ def main() -> int:
     compressed = phase_compressed_path()
     reference = phase_reference_check()
     compressed_reference = phase_compressed_reference_check()
+    zoo = phase_zoo_paths()
+    zoo_reference = phase_zoo_reference_check()
 
     dq = dq_timing["int8"]
     kernels = [{
@@ -755,13 +1226,33 @@ def main() -> int:
         "bound_by": dq["bound_by"],
         "library_ms": dq["library_ms"],
     }]
+    for name, src, replaces, launches, err in (
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:30",
+             zoo["olmo-1b bf16"]["prefill_launches"]["flash_attention"], flash_err),
+            ("ssd_chunk_scan", "ssd_scan.cu", "ssd_scan.py:27",
+             zoo["mamba2-130m bf16"]["prefill_launches"]["ssd_chunk_scan"], ssd_err)):
+        row = zoo_timing[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "kernels": kernels, "timing": timing, "fold": fold, "path": path,
         "reference": reference, "dequant_timing": dq_timing,
         "compressed_breakdown": compressed_split, "compressed_path": compressed,
-        "compressed_reference": compressed_reference, "seconds": time.monotonic() - t_start,
+        "compressed_reference": compressed_reference, "zoo_timing": zoo_timing, "zoo": zoo,
+        "zoo_reference": zoo_reference, "seconds": time.monotonic() - t_start,
     }, indent=1))
     say(f"[done] {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -11,5 +11,7 @@ from __future__ import annotations
 
 from .dequant_fold import dequant_fold
 from .fedavg_reduce import fedavg_reduce
+from .flash_attention import flash_attention
+from .ssd_scan import ssd_chunk_scan as ssd_scan
 
-__all__ = ["dequant_fold", "fedavg_reduce"]
+__all__ = ["dequant_fold", "fedavg_reduce", "flash_attention", "ssd_scan"]
