@@ -10,13 +10,17 @@ or of the JAX package.  In order it:
      off for matmuls and cuDNN convolutions;
   2. builds every kernel of the port's paths from ``src/repro_torch/
      kernels/csrc`` with nvcc (one process per source, all started
-     together) and prints ptxas's registers and shared memory per kernel;
+     together), prints ptxas's registers and shared memory per kernel and,
+     where ``cuobjdump`` is found, the count of wgmma (HGMMA), TMA load
+     (UTMALDG) and mma.sync (HMMA) instructions in each library's SASS;
   3. holds each kernel against its plain PyTorch version on the card, over
      the CPU tests' sweeps and at the paths' shapes (``dequant_fold`` bit
      for bit, on aligned and misaligned payloads; ``flash_attention`` over
-     MHA / GQA / MQA, windows, full attention, ragged S, fp32 and bf16, and
-     olmo-1b's prefill; ``ssd_chunk_scan`` over the reference's sweep, the
-     state continuation, the O(L) recurrence and mamba2-130m's prefill);
+     MHA / GQA / MQA at both head widths, windows inside and across tiles,
+     full attention, ragged S, fp32 and bf16, and olmo-1b's prefill;
+     ``ssd_chunk_scan`` over the reference's sweep, head counts and chunks
+     off the kernel's tiles, the state continuation, the O(L) recurrence and
+     mamba2-130m's prefill);
   4. times each kernel at its path's shape (CUDA events around each
      launch after warm-up; 4 rounds of 10 launches each of kernel, plain
      version and one PyTorch library call computing the same function,
@@ -37,7 +41,9 @@ or of the JAX package.  In order it:
      carried into the next round;
   8. serves olmo-1b and mamba2-130m at full width (bf16, random weights):
      ``prefill_step`` on a (4, 2048) batch (16 ``flash_attention`` and 24
-     ``ssd_chunk_scan`` launches exactly), the serve driver (a (4, 32) and
+     ``ssd_chunk_scan`` launches exactly), timed 5 times and traced once
+     with ``torch.profiler`` (the device's busy time, idle share and
+     heaviest kernels), the serve driver (a (4, 32) and
      a (4, 256) prompt token by token, 16 tokens decoded, no kernel
      launch), and the prompt's prefill logits against its token-by-token
      logits, in bf16 and again in fp32;
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -206,6 +213,30 @@ def phase_build():
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 say(f"[build] {name}: {line.strip()}")
+    return sass_counts(libs)
+
+
+def sass_counts(libs: dict) -> dict:
+    """Counts of tensor-core and TMA instructions in the built libraries'
+    SASS (``cuobjdump -sass``), where ``cuobjdump`` is found: the bf16
+    flash kernel must issue wgmma (HGMMA) and TMA loads (UTMALDG), the scan
+    its bf16 scores on mma.sync (HMMA)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        say("[build] cuobjdump not found: no SASS counts (ptxas' report above stands)")
+        return {}
+    out = {}
+    for name, lib in libs.items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        out[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+        say(f"[build] {name} SASS: " + ", ".join(f"{op} {n}" for op, n in out[name].items()))
+    check(out["flash_attention"]["HGMMA"] > 0 and out["flash_attention"]["UTMALDG"] > 0,
+          "the flash library issues wgmma and TMA loads")
+    check(out["ssd_scan"]["HMMA"] > 0, "the scan library forms bf16 scores on the tensor cores")
+    return out
 
 
 def phase_kernel_check():
@@ -758,8 +789,10 @@ def _qkv(B, S, H, KV, D, dtype, gen):
 
 def phase_flash_check():
     """flash_attention against its plain version (``causal_attention`` /
-    ``full_attention``) on the card: MHA, GQA 4:1 and MQA, windows 16, 64
-    and 100, full attention, ragged S (100, 300), fp32 (2e-5) and bf16
+    ``full_attention``) on the card: MHA, GQA 4:1 and MQA at head widths 64
+    and 128, windows 16, 64 and 100 (inside a 128-key tile) and 200 and 300
+    (across tiles), full attention, ragged S (40, 100, 130, 300, 1000: below
+    64 and past multiples of 64 and 128), fp32 (2e-5) and bf16
     (2e-2; the plain version rounds the softmax weights to bf16, the
     kernel keeps them in fp32), and olmo-1b's prefill (B 4, S 2048, 16
     heads of 128, bf16, causal), the main path's call, whose error is
@@ -782,6 +815,13 @@ def phase_flash_check():
         cases += [(1, 256, 4, 2, 64, True, w, dt) for w in (16, 64, 100)]
         cases += [(2, 128, 4, 4, 64, False, None, dt), (2, 100, 4, 2, 128, True, None, dt),
                   (2, 300, 4, 2, 128, True, None, dt), (1, 300, 4, 4, 64, False, None, dt)]
+        # The bf16 kernel's tile edges (128 query rows, 128-key tiles): S
+        # past a multiple of 128 and below 64, a window spanning tiles, GQA
+        # 4:1 and MQA at both head widths.
+        cases += [(1, 130, 4, 2, 128, True, None, dt), (1, 1000, 4, 1, 64, True, None, dt),
+                  (2, 40, 4, 4, 64, True, None, dt), (1, 130, 4, 4, 128, False, None, dt),
+                  (1, 1000, 8, 2, 128, True, 200, dt), (1, 512, 4, 4, 64, True, 300, dt),
+                  (1, 256, 8, 2, 128, True, None, dt), (1, 256, 4, 1, 64, True, None, dt)]
     main_case = (PREFILL_B, PREFILL_S, 16, 16, 128, True, None, torch.bfloat16)
     cases.append(main_case)
     main_err = None
@@ -850,9 +890,11 @@ def phase_ssd_check():
     P 64, N 128, chunk 256) in fp32 and in bf16 (the main path's call; y
     comes back in bf16, 2e-2, and as a whole within 1e-2 relative L2 of
     the plain version computed in fp32 from the same bf16 inputs: the
-    output's rounding alone gives ~1e-3).  At that shape the kernel's
-    three outputs are also held against its plain version alone; the
-    largest error of those, in bf16, is returned."""
+    output's rounding alone gives ~1e-3), and the kernel's edges (H not a
+    multiple of its head group of 4, chunks of 96, 150 and 160 positions).
+    At that shape and at the edges the kernel's three outputs are also held
+    against its plain version alone (2e-5 scaled); the largest error of
+    those at mamba2-130m's shape in bf16 is returned."""
     import torch
     from repro_torch.kernels.ssd_scan import (
         ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk, ssd_intra_chunk_plain)
@@ -863,6 +905,11 @@ def phase_ssd_check():
     cases = [((2, 64, 4, 16, 32, 16), torch.float32), ((2, 128, 8, 32, 64, 32), torch.float32),
              ((2, 256, 8, 64, 128, 64), torch.float32), ((2, 200, 4, 32, 16, 100), torch.float32),
              (full, torch.float32), (full, torch.bfloat16)]
+    # The kernel's edges: H not a multiple of its head group (4) and a chunk
+    # not a multiple of its 64-position tiles, in both dtypes.
+    edges = [((1, 192, 6, 64, 128, 96), torch.float32), ((1, 192, 6, 64, 128, 96), torch.bfloat16),
+             ((2, 300, 5, 16, 36, 150), torch.bfloat16), ((1, 320, 7, 32, 64, 160), torch.float32)]
+    cases += edges
     main_err = None
     for (B, L, H, P, N, Q), dt in cases:
         args = _ssd_inputs(B, L, H, P, N, dt, gen)
@@ -883,7 +930,7 @@ def phase_ssd_check():
             f"max|kernel-plain| y {err_y:.3e} (tol {tol:g} scaled), state {err_h:.3e} "
             f"(tol 2e-05 scaled){l2} {'ok' if ok_y and ok_h else 'FAIL'}")
         check(ok_y and ok_h and y.dtype == dt, f"ssd_chunk_scan {(B, L, H, P, N, Q, dt)}")
-        if (B, L, H, P, N, Q) == full:
+        if (B, L, H, P, N, Q) == full or ((B, L, H, P, N, Q), dt) in edges:
             errs = []
             for name, g, w in zip(("y_diag", "states", "a_cs"), ssd_intra_chunk(*args, Q),
                                   ssd_intra_chunk_plain(*args, Q)):
@@ -891,8 +938,8 @@ def phase_ssd_check():
                 errs.append(err)
                 say(f"[check]   kernel alone, {name}: max|kernel-plain|={err:.3e} "
                     f"(tol 2e-05 scaled) {'ok' if ok else 'FAIL'}")
-                check(ok, f"ssd_intra_chunk {name} at {full} {dt}")
-            if dt == torch.bfloat16:
+                check(ok, f"ssd_intra_chunk {name} at {(B, L, H, P, N, Q)} {dt}")
+            if (B, L, H, P, N, Q) == full and dt == torch.bfloat16:
                 main_err = max(errs)
         del args, y, h, y_want, h_want
 
@@ -1003,11 +1050,48 @@ def _bound_row(q4: dict, n: int, flops: float, peak: float, nbytes: float, what:
             "flops": flops, "bytes": nbytes, "achieved_tflop_s": flops / ms / 1e9}
 
 
+def _trace_prefill(run, tag: str) -> dict:
+    """One more prefill under ``torch.profiler`` (CPU and CUDA activity):
+    the device's busy time (the union of its kernels' intervals) against
+    the host clock around the call, so the device's idle share, and the
+    kernels that take the most device time.  The profiler's own cost on the
+    host is in the wall time; the timed prefills above are not traced."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        say(f"{tag}: traced prefill: the profiler recorded no device time (wall {wall * 1e3:.1f} ms)")
+        return {"wall_s": wall, "device_busy_s": None}
+    busy, end = 0.0, -math.inf
+    by_name: dict = {}
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start)
+    busy_s = busy * 1e-6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    say(f"{tag}: traced prefill: wall {wall * 1e3:.1f} ms, device busy {busy_s * 1e3:.1f} ms "
+        f"({len(kernels)} kernels), idle share {1 - busy_s / wall:.1%}; most device time: "
+        + "; ".join(f"{name[:60]} {t / 1e3:.2f} ms" for name, t in top))
+    return {"wall_s": wall, "device_busy_s": busy_s, "n_kernels": len(kernels),
+            "top_kernels_ms": [(name, t / 1e3) for name, t in top]}
+
+
 def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, kernel: str,
                  per_prefill: int, tol: float, full_prefill: bool) -> dict:
     """One zoo model at full width on the card, weights random from seed 0:
     ``prefill_step`` on a (4, 2048) batch, PREFILL_RUNS times after a
-    warm-up (``full_prefill``; median and quartiles), then the serve
+    warm-up (``full_prefill``; median and quartiles) and once more under
+    the profiler (device busy time and idle share), then the serve
     driver (token-by-token prefill of a (4, prompt_len) prompt through
     ``serve_step``, then greedy decoding), then ``prefill_step`` on that
     prompt, whose logits must agree with the token-by-token ones at every
@@ -1061,6 +1145,9 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
               f"{arch} prefill: exactly {per_prefill} {kernel} launches a run, got {all_launches}")
         out.update(prefill_s=med, prefill_s_quartiles=(q1, med, q3), prefill_s_runs=times,
                    prefill_launches=launches, prefill_peak_bytes=peak)
+        zero_counts()
+        out["prefill_trace"] = _trace_prefill(lambda: prefill(params, {"tokens": tokens}), tag)
+        check(counts() == only | {kernel: per_prefill}, f"{arch} traced prefill launches")
         del logits, tokens
 
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, prompt_len))).cuda()
@@ -1180,7 +1267,7 @@ def main() -> int:
         return 1
     t_start = time.monotonic()
     smi = phase_device()
-    phase_build()
+    sass = phase_build()
     main_err = phase_kernel_check()
     dq_err = phase_dequant_check()
     flash_err = phase_flash_check()
@@ -1248,7 +1335,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "nvidia_smi": smi, "kernels": kernels, "timing": timing, "fold": fold, "path": path,
+        "nvidia_smi": smi, "sass_counts": sass, "kernels": kernels, "timing": timing, "fold": fold, "path": path,
         "reference": reference, "dequant_timing": dq_timing,
         "compressed_breakdown": compressed_split, "compressed_path": compressed,
         "compressed_reference": compressed_reference, "zoo_timing": zoo_timing, "zoo": zoo,

@@ -9,8 +9,15 @@ by device-memory bytes.
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
 kernel in ``csrc/flash_attention.cu`` (it replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::_flash_kernel``; the source says how
-it is built).  On a CPU tensor it computes the same function with
+``repro/kernels/flash_attention.py::_flash_kernel``).  For bf16 it is a
+warp-specialised wgmma kernel: a producer warpgroup keeps TMA loads of
+128-key K and V tiles in flight through a two-stage ring of swizzled
+shared memory, and two consumer warpgroups of 64 query rows each form
+S = Q K^T and O += P V with ``wgmma`` (P from registers); fp32 runs on
+the CUDA cores.  What holds the bf16 kernel back now is that a
+consumer's softmax does not overlap the products (no ping-pong, no
+intra-warpgroup overlap) and blocks are not persistent; the source says
+more.  On a CPU tensor it computes the same function with
 :func:`flash_attention_plain`, the port's ``causal_attention`` (or
 ``full_attention`` when ``causal=False``), and only there: a CUDA tensor
 gets the kernel or an error, never the plain version.
@@ -20,9 +27,12 @@ The contract is the reference's: q ``(B, S, H, D)``, k and v
 dtype; query head ``h`` reads KV head ``h // (H // KV)``; the scale is
 ``1/sqrt(D)``; queries and keys share positions ``0..S-1``.  One thing
 is wider: S need not be a multiple of a block (the reference asserts it
-is); the kernel masks the ragged edge itself.  Rows with no key in range
-give 0.  fp32 inputs run on the CUDA cores in fp32; bf16 inputs on the
-tensor cores with fp32 accumulation and an fp32 online softmax, the
+is); the kernel masks the ragged edge itself (TMA fills keys past S with
+zeros).  The bf16 path needs q, k and v on 16-byte bases and strides,
+which TMA addresses; the wrapper copies a tensor that is not.  Rows with
+no key in range give 0.  fp32 inputs run on the CUDA cores in fp32; bf16
+inputs on the tensor cores with fp32 accumulation and an fp32 online
+softmax (in base 2), the
 probabilities rounded to bf16 for the product with V (unnormalized,
 where ``causal_attention`` rounds the normalized weights), so bf16
 results agree to the reference's bf16 tolerance (2e-2), not bit for bit.
@@ -96,11 +106,19 @@ def _kernel_fn():
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    """D contiguous, and every row starting on 16 bytes: the bf16 kernel
-    copies its tiles 16 bytes at a time."""
+    """D contiguous, the base on 16 bytes and every other stride a positive
+    multiple of 16 bytes: the bf16 kernel reads its tiles with TMA, which
+    addresses nothing else (its launcher refuses such a tensor)."""
     per16 = 16 // t.element_size()
-    return (t.stride(-1) == 1 and all(st % per16 == 0 for st in t.stride()[:-1])
+    return (t.stride(-1) == 1 and all(st > 0 and st % per16 == 0 for st in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)
+
+
+def _as_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernel can read it, else a fresh contiguous
+    copy (``contiguous()`` would hand back a contiguous tensor whose base is
+    off 16 bytes as it is)."""
+    return t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -114,7 +132,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise RuntimeError(
             "flash_attention has no backward (neither has the reference's Pallas kernel); "
             "training through it comes with ROADMAP.md queue 1, item 17 (training the zoo)")
-    q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
+    q, k, v = (_as_aligned(t) for t in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):

@@ -8,8 +8,13 @@ state recurrence is a short loop over chunks.
 
 On a CUDA tensor :func:`ssd_chunk_scan` launches the hand-written Hopper
 kernel in ``csrc/ssd_scan.cu`` for the intra-chunk part (it replaces the
-Pallas TPU kernel ``repro/kernels/ssd_scan.py::_ssd_kernel``; the source
-says how it is built) and then runs the inter-chunk recurrence and the
+Pallas TPU kernel ``repro/kernels/ssd_scan.py::_ssd_kernel``).  Its y
+blocks form each score tile C·Bᵀ once for a group of 4 heads (on the
+tensor cores, ``mma.sync``, when B and C are bf16) and multiply it into
+the 4 heads' outputs; its state blocks fold x·dt·decay into the chunk
+states of 2 heads.  y and the states are fp32 products on the CUDA
+cores, which is what holds it back now; the source says more.  It then
+runs the inter-chunk recurrence and the
 carried-state term as torch ops, as the reference runs them as XLA ops
 outside its kernel.  On a CPU tensor it computes the same function with
 :func:`ssd_chunk_scan_plain`, the port's ``models.mamba2.ssd_chunked``,
@@ -21,7 +26,9 @@ dt ``(B, L, H)`` fp32 (after the softplus), A ``(H,)`` fp32 (negative),
 B and C ``(B, L, N)``, ``L % chunk == 0``; it returns y ``(B, L, H, P)``
 in x's dtype and the final state ``(B, H, P, N)`` in fp32, continuing
 from ``initial_state`` when one is given.  The kernel takes x, B and C in
-fp32 or bf16, P <= 64 and N <= 128 (every SSM config of the repo).
+fp32 or bf16, P <= 64 and N <= 128 (every SSM config of the repo), and
+reads them 4 elements at a time: the wrapper copies one whose base or
+strides do not allow that.
 
 No backward exists, in the reference or here: a CUDA input that needs a
 gradient while grad mode is on raises.
@@ -127,8 +134,19 @@ def _kernel_fn():
     return fn
 
 
-def _rows_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
+def _rows_vectorized(t: torch.Tensor) -> bool:
+    """The last axis contiguous, the other strides multiples of 4 elements
+    and the base on 4 elements: the kernel reads x, B and C 4 elements at a
+    time (its launcher refuses anything else)."""
+    return (t.stride(-1) == 1 and all(st % 4 == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % (4 * t.element_size()) == 0)
+
+
+def _as_vectorized(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernel can read it, else a fresh contiguous
+    copy (``contiguous()`` would hand back a misaligned contiguous tensor as
+    it is)."""
+    return t if _rows_vectorized(t) else t.clone(memory_format=torch.contiguous_format)
 
 
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: torch.Tensor,
@@ -150,7 +168,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: t
         raise RuntimeError(
             "ssd_chunk_scan has no backward (neither has the reference's Pallas kernel); "
             "training through it comes with ROADMAP.md queue 1, item 17 (training the zoo)")
-    x, B_mat, C_mat = (_rows_contiguous(t) for t in (x, B_mat, C_mat))
+    x, B_mat, C_mat = (_as_vectorized(t) for t in (x, B_mat, C_mat))
     dt = dt.float()
     A = A.float().contiguous()
     n_chunks = L // chunk

@@ -127,6 +127,40 @@ def test_rejects_bad_input(bad):
         flash_attention(q, k, v, **kw)
 
 
+@pytest.mark.parametrize("view,aligned", [
+    ("contiguous", True),
+    ("fused_qkv", True),         # heads strided inside a (B, S, 3, H, D) projection
+    ("offset_one", False),       # the base 2 bytes past 16
+    ("row_pad_4", False),        # rows 8 bytes past a multiple of 16
+    ("expanded", False),         # a stride of 0
+    ("every_other", False),      # D not contiguous
+])
+def test_rows_aligned_is_what_tma_addresses(view, aligned):
+    """The bf16 kernel reads q, k and v with TMA: a base on 16 bytes and
+    positive strides that are multiples of 16 bytes.  The wrapper hands the
+    kernel such a tensor as it is and copies any other; its launcher
+    refuses the rest."""
+    from repro_torch.kernels.flash_attention import _as_aligned, _rows_aligned
+
+    B, S, H, D = 2, 8, 4, 64
+    buf = torch.zeros(B * S * 3 * H * D + 8, dtype=torch.bfloat16)
+    base = buf[:B * S * H * D].view(B, S, H, D)
+    views = {
+        "contiguous": lambda: base,
+        "fused_qkv": lambda: buf[:B * S * 3 * H * D].view(B, S, 3, H, D)[:, :, 1],
+        "offset_one": lambda: buf[1:1 + B * S * H * D].view(B, S, H, D),
+        "row_pad_4": lambda: buf[:B * S * H * (D + 4)].view(B, S, H, D + 4)[..., :D],
+        "expanded": lambda: base[:, :1].expand(B, S, H, D),
+        "every_other": lambda: buf[:B * S * H * 2 * D].view(B, S, H, 2 * D)[..., ::2],
+    }
+    t = views[view]()
+    assert buf.data_ptr() % 16 == 0
+    assert _rows_aligned(t) is aligned
+    fixed = _as_aligned(t)
+    assert _rows_aligned(fixed) and torch.equal(fixed, t)
+    assert (fixed.data_ptr() == t.data_ptr()) is aligned
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -151,6 +185,14 @@ def _card():
     (1, 300, 4, 4, 128, True, None),
     (1, 300, 4, 4, 128, False, None),
     (1, 300, 4, 2, 64, True, 100),
+    # The bf16 kernel's tile edges (128 query rows, 128-key tiles).
+    (1, 130, 4, 2, 128, True, None),     # S just past a tile
+    (1, 1000, 4, 1, 64, True, None),     # S past a multiple of 64, MQA
+    (2, 40, 4, 4, 64, True, None),       # S below 64
+    (1, 130, 4, 4, 128, False, None),
+    (1, 1000, 8, 2, 128, True, 200),     # a window across tiles
+    (1, 256, 8, 2, 128, True, None),     # GQA 4:1 at D 128
+    (1, 256, 4, 1, 64, True, None),      # MQA at D 64
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(case, dtype):
@@ -180,6 +222,23 @@ def test_kernel_strided_inputs_on_card():
     got = flash_attention(q, k, v)
     want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_kernel_misaligned_base_on_card():
+    """bf16 q, k, v that are contiguous but start 2 bytes past 16 (TMA
+    cannot read them): the wrapper copies them, and the result is the
+    aligned inputs' result."""
+    _card()
+    B, S, H, D = 1, 200, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bufs = [torch.randn(B * S * H * D + 1, generator=gen, device="cuda").bfloat16()
+            for _ in range(3)]
+    q, k, v = (b[1:].view(B, S, H, D) for b in bufs)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    got = flash_attention(q, k, v)
+    want = flash_attention(q.clone(), k.clone(), v.clone())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.gpu

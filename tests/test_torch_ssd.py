@@ -145,6 +145,37 @@ def test_rejects_bad_input(bad):
         ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
 
 
+@pytest.mark.parametrize("view,ok", [
+    ("contiguous", True),
+    ("xbc_split", True),        # B and C as column slices of one (B, L, 2N + 4) projection
+    ("offset_two", False),      # the base 2 elements past a multiple of 4
+    ("row_pad_2", False),       # rows 2 elements past a multiple of 4
+    ("every_other", False),     # the last axis not contiguous
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_vectorized_is_what_the_kernel_reads(view, ok, dtype):
+    """The kernel reads x, B and C 4 elements at a time: the wrapper hands
+    it a tensor whose base and strides allow that as it is and copies any
+    other (also a contiguous one whose base is off); its launcher refuses
+    the rest."""
+    from repro_torch.kernels.ssd_scan import _as_vectorized, _rows_vectorized
+
+    B, L, N = 2, 8, 16
+    buf = torch.arange(B * L * (2 * N + 4) + 8, dtype=torch.float32).to(dtype)
+    views = {
+        "contiguous": lambda: buf[:B * L * N].view(B, L, N),
+        "xbc_split": lambda: buf[:B * L * (2 * N + 4)].view(B, L, 2 * N + 4)[..., N + 4:],
+        "offset_two": lambda: buf[2:2 + B * L * N].view(B, L, N),
+        "row_pad_2": lambda: buf[:B * L * (N + 2)].view(B, L, N + 2)[..., :N],
+        "every_other": lambda: buf[:B * L * 2 * N].view(B, L, 2 * N)[..., ::2],
+    }
+    t = views[view]()
+    assert _rows_vectorized(t) is ok
+    fixed = _as_vectorized(t)
+    assert _rows_vectorized(fixed) and torch.equal(fixed, t)
+    assert (fixed.data_ptr() == t.data_ptr()) is ok
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -163,6 +194,9 @@ def _card():
     (1, 512, 4, 64, 128, 256),    # mamba2-130m's chunk, P and N
     (1, 96, 4, 8, 16, 32),
     (2, 200, 4, 32, 16, 100),     # a chunk that is not a multiple of 64
+    (1, 192, 6, 64, 128, 96),     # H not a multiple of the kernel's head group (4)
+    (2, 300, 5, 16, 36, 150),     # an odd H and pair of heads, N not a multiple of 16
+    (1, 320, 7, 32, 64, 160),
 ])
 def test_kernel_matches_plain_on_card(B, L, H, P, N, chunk):
     """Card only: the kernel (with the torch-side inter-chunk part) against
@@ -194,14 +228,17 @@ def test_kernel_continuation_on_card():
 
 
 @pytest.mark.gpu
-def test_kernel_bf16_on_card():
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 256, 8, 64, 128, 64), (1, 192, 6, 64, 128, 96),
+                                             (2, 300, 5, 16, 36, 150)])
+def test_kernel_bf16_on_card(B, L, H, P, N, chunk):
     """bf16 x, B, C (the model's activation dtype): the kernel and the
-    plain version read the same bf16 values and work in fp32; y comes back
-    in bf16, so 2e-2."""
+    plain version read the same bf16 values and work in fp32 (the kernel
+    forms the scores on the tensor cores, exact products summed in fp32);
+    y comes back in bf16, so 2e-2."""
     _card()
-    args = _torch(_inputs(2, 256, 8, 64, 128, seed=1), "cuda", torch.bfloat16)
-    y, h = ssd_chunk_scan(*args, chunk=64)
-    y_want, h_want = ssd_chunk_scan_plain(*args, 64)
+    args = _torch(_inputs(B, L, H, P, N, seed=1), "cuda", torch.bfloat16)
+    y, h = ssd_chunk_scan(*args, chunk=chunk)
+    y_want, h_want = ssd_chunk_scan_plain(*args, chunk)
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     _close_t(y.float(), y_want.float(), 2e-2)
     _close_t(h, h_want)
@@ -261,11 +298,14 @@ def test_intra_plain_and_inter_chunk_compose_to_the_scan():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 256, 8, 64, 128, 64), (1, 200, 4, 32, 16, 100)])
-def test_kernel_alone_matches_its_plain_version_on_card(B, L, H, P, N, chunk):
-    """Card only: the kernel's three outputs against ssd_intra_chunk_plain."""
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 256, 8, 64, 128, 64), (1, 200, 4, 32, 16, 100),
+                                             (1, 192, 6, 64, 128, 96), (2, 300, 5, 16, 36, 150)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_alone_matches_its_plain_version_on_card(B, L, H, P, N, chunk, dtype):
+    """Card only: the kernel's three outputs against ssd_intra_chunk_plain,
+    both reading the same fp32 or bf16 inputs."""
     _card()
-    args = _torch(_inputs(B, L, H, P, N, seed=L), "cuda")
+    args = _torch(_inputs(B, L, H, P, N, seed=L), "cuda", dtype)
     got = ssd_intra_chunk(*args, chunk)
     want = ssd_intra_chunk_plain(*args, chunk)
     for g, w in zip(got, want):
