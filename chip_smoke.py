@@ -48,7 +48,23 @@ or of the JAX package.  In order it:
      launch), and the prompt's prefill logits against its token-by-token
      logits, in bf16 and again in fp32;
   9. runs reduced olmo-1b and mamba2-130m in fp32 on the card and on the
-     CPU from the same weights: prefill logits and greedy tokens.
+     CPU from the same weights: prefill logits and greedy tokens;
+ 10. trains olmo-1b at full width (bf16, (2, 2048) batches): the flash
+     backward kernel held against its plain version over the forward's
+     cases (phase 3) and timed against SDPA's gradient (phase 4, with the
+     forward with and without its log-sum-exp store), five timed
+     ``make_train_step`` steps and one traced, each with 16 forward and 16
+     backward launches, and ``repro_torch.launch.train.main`` for 8 steps
+     (exit 0: the loss fell);
+ 11. runs federated LoRA on olmo-1b at full width (``with_lora(2)``, 4
+     silos): 2 rounds uncompressed and 2 with int8 adapter deltas under
+     ``AsyncFLServer(schema=lora_adapter_schema())``, the base bit-equal
+     and the adapters moved after every round, per-group wire bytes as
+     ``measure_messages`` counts them, ``dequant_fold`` once a silo in an
+     int8 round;
+ 12. runs reduced olmo-1b in fp32 on the card and on the CPU from the
+     same weights: one train step, and one federated LoRA round of 2
+     silos (adapters within 1e-4, base bit-equal, traces equal).
 For each path every kernel's launch count is set to 0 just before and
 read just after.
 
@@ -80,7 +96,11 @@ TIMING_ROUNDS = 4       # rounds of kernel / plain / library, order alternating
 TIMED_PER_ROUND = 10    # launches of each per round: 40 samples each
 PREFILL_RUNS = 5        # timed full-width prefills a model, after one warm-up
 PREFILL_B, PREFILL_S = 4, 2048   # the zoo's full-width prefill batch
-KERNELS = ("fedavg_reduce", "dequant_fold", "flash_attention", "ssd_chunk_scan")
+KERNELS = ("fedavg_reduce", "dequant_fold", "flash_attention", "flash_attention_bwd",
+           "ssd_chunk_scan")
+TRAIN_B, TRAIN_S = 2, 2048      # the zoo's full-width training batch
+TRAIN_STEPS = 5                 # timed train steps, after one warm-up
+LORA_SILOS = 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -138,11 +158,12 @@ def alternating(fns: dict) -> tuple:
 def _wrappers() -> dict:
     from repro_torch.kernels.dequant_fold import dequant_fold
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan
 
     return {"fedavg_reduce": fedavg_reduce, "dequant_fold": dequant_fold,
-            "flash_attention": flash_attention, "ssd_chunk_scan": ssd_chunk_scan}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "ssd_chunk_scan": ssd_chunk_scan}
 
 
 def zero_counts() -> None:
@@ -206,14 +227,17 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
-    libs = _build.build(["fedavg_reduce", "dequant_fold", "flash_attention", "ssd_scan"])
+    libs = _build.build(["fedavg_reduce", "dequant_fold", "flash_attention",
+                         "flash_attention_bwd", "ssd_scan"])
     say(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
         f"in {time.monotonic() - t0:.1f} s")
+    ptxas = []
     for name in libs:
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
-                say(f"[build] {name}: {line.strip()}")
-    return sass_counts(libs)
+                ptxas.append(f"{name}: {line.strip()}")
+                say(f"[build] {ptxas[-1]}")
+    return sass_counts(libs), ptxas
 
 
 def sass_counts(libs: dict) -> dict:
@@ -236,6 +260,8 @@ def sass_counts(libs: dict) -> dict:
     check(out["flash_attention"]["HGMMA"] > 0 and out["flash_attention"]["UTMALDG"] > 0,
           "the flash library issues wgmma and TMA loads")
     check(out["ssd_scan"]["HMMA"] > 0, "the scan library forms bf16 scores on the tensor cores")
+    check(out["flash_attention_bwd"]["HMMA"] > 0,
+          "the flash backward library runs its bf16 products on the tensor cores")
     return out
 
 
@@ -1050,8 +1076,8 @@ def _bound_row(q4: dict, n: int, flops: float, peak: float, nbytes: float, what:
             "flops": flops, "bytes": nbytes, "achieved_tflop_s": flops / ms / 1e9}
 
 
-def _trace_prefill(run, tag: str) -> dict:
-    """One more prefill under ``torch.profiler`` (CPU and CUDA activity):
+def _trace_prefill(run, tag: str, what: str = "prefill") -> dict:
+    """One more prefill (or other step) under ``torch.profiler`` (CPU and CUDA activity):
     the device's busy time (the union of its kernels' intervals) against
     the host clock around the call, so the device's idle share, and the
     kernels that take the most device time.  The profiler's own cost on the
@@ -1068,7 +1094,8 @@ def _trace_prefill(run, tag: str) -> dict:
         wall = time.monotonic() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        say(f"{tag}: traced prefill: the profiler recorded no device time (wall {wall * 1e3:.1f} ms)")
+        say(f"{tag}: traced {what}: the profiler recorded no device time "
+            f"(wall {wall * 1e3:.1f} ms)")
         return {"wall_s": wall, "device_busy_s": None}
     busy, end = 0.0, -math.inf
     by_name: dict = {}
@@ -1079,7 +1106,7 @@ def _trace_prefill(run, tag: str) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start)
     busy_s = busy * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    say(f"{tag}: traced prefill: wall {wall * 1e3:.1f} ms, device busy {busy_s * 1e3:.1f} ms "
+    say(f"{tag}: traced {what}: wall {wall * 1e3:.1f} ms, device busy {busy_s * 1e3:.1f} ms "
         f"({len(kernels)} kernels), idle share {1 - busy_s / wall:.1%}; most device time: "
         + "; ".join(f"{name[:60]} {t / 1e3:.2f} ms" for name, t in top))
     return {"wall_s": wall, "device_busy_s": busy_s, "n_kernels": len(kernels),
@@ -1258,6 +1285,515 @@ def phase_zoo_reference_check():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training the zoo and federated LoRA: flash_attention_bwd
+# ---------------------------------------------------------------------------
+
+def _flash_module():
+    """The flash wrapper module (the package re-exports its function under
+    the module's name, so ``import ... as`` would give the function)."""
+    import repro_torch.kernels.flash_attention  # noqa: F401
+
+    return sys.modules["repro_torch.kernels.flash_attention"]
+
+
+def phase_flash_bwd_check():
+    """The backward kernel against ``flash_attention_bwd_plain`` computed in
+    fp32 from the same inputs (the forward kernel's output and log-sum-exp,
+    the same dO): olmo-1b's shape (4, 2048, 16, 128) causal bf16 (the main
+    path's call), GQA (32 query heads on 8), D 64, a window across tiles,
+    full attention, ragged S (1000, 130 and 1), the fp32 path, and a q
+    whose base is off 16 bytes.  bf16: relative L2 <= 1e-2 per gradient;
+    fp32: within 2e-5 of each gradient's max |.|.  At S = 1, dq and dk are
+    0 in exact arithmetic (one key: P = 1 and dP = Delta), so they are held
+    within 1e-2 (bf16) / 2e-5 (fp32) of max|dv| instead.  The forward's
+    log-sum-exp is held against ``attention_lse_plain`` within 2e-5 of its
+    scale, and the forward's output with the log-sum-exp stored must equal
+    the output without it bit for bit.  Returns the largest |kernel - plain|
+    over the three gradients at olmo-1b's shape."""
+    import torch
+
+    fa = _flash_module()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    main_case = (PREFILL_B, PREFILL_S, 16, 16, 128, True, None, bf)
+    cases = [main_case,
+             (2, 1024, 32, 8, 128, True, None, bf),     # GQA 4:1
+             (2, 512, 8, 8, 64, True, None, bf),        # D 64
+             (1, 1000, 8, 2, 128, True, 200, bf),       # a window across tiles
+             (2, 300, 4, 4, 128, False, None, bf),      # full attention, ragged S
+             (1, 1000, 4, 1, 64, True, None, bf),       # ragged S, MQA
+             (2, 130, 4, 2, 128, True, None, bf),
+             (1, 1, 4, 2, 128, True, None, bf),         # one position
+             (2, 300, 8, 2, 64, True, None, f32),       # the fp32 path
+             (1, 1000, 4, 2, 128, True, 100, f32),
+             (2, 130, 4, 4, 128, False, None, f32),
+             (1, 1, 4, 4, 64, True, None, f32)]
+    main_err = None
+    for case in cases:
+        B, S, H, KV, D, causal, window, dt = case
+        q, k, v = _qkv(B, S, H, KV, D, dt, gen)
+        dout = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+        o = fa._launch(q, k, v, causal, window, lse=lse)
+        o_plain_fwd = fa._launch(q, k, v, causal, window)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
+        torch.cuda.synchronize()
+        lse_want = fa.attention_lse_plain(q.float(), k.float(), causal, window)
+        lse_err = (lse - lse_want).abs().max().item()
+        ok = torch.equal(o, o_plain_fwd) and lse_err <= 2e-5 * max(1.0, lse_want.abs().max().item())
+        want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                            dout.float(), causal, window)
+        tol = 1e-2 if dt == bf else 2e-5
+        errs, scores = [], []
+        dv_scale = want[2].abs().max().item()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            ok = ok and g.dtype == dt and g.shape == w.shape and bool(torch.isfinite(g).all())
+            err = (g.float() - w).abs().max().item()
+            errs.append(err)
+            if S == 1 and name != "dv":
+                score = err / dv_scale
+            elif dt == bf:
+                score = rel_l2(g, w)
+            else:
+                score = err / max(1.0, w.abs().max().item())
+            scores.append(score)
+            ok = ok and score <= tol
+        measure = ("max|.|/max|dv|" if S == 1 else
+                   "relative L2" if dt == bf else "max|kernel-plain|/max(1,max|plain|)")
+        say(f"[check] flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} "
+            f"{'causal' if causal else 'full'} window={window} {str(dt)[6:]}: {measure} "
+            + ", ".join(f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), scores))
+            + f" (tol {tol:g}); lse max|diff| {lse_err:.3e}; output with lse stored "
+            f"bit-equal {torch.equal(o, o_plain_fwd)} {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention_bwd {case}")
+        if case == main_case:
+            main_err = max(errs)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            say(f"[check] flash_attention_bwd at olmo-1b's shape, a second launch on the same "
+                f"inputs: bit-equal {same} (one writer per output, no atomics)")
+            check(same, "flash_attention_bwd is deterministic")
+            del again
+        del q, k, v, dout, lse, o, o_plain_fwd, got, want, lse_want
+        torch.cuda.empty_cache()
+
+    # A bf16 q contiguous but 2 bytes past 16: the wrapper copies it.
+    B, S, H, D = 1, 200, 4, 128
+    buf = torch.randn(B * S * H * D + 1, generator=gen, device="cuda").to(bf)
+    qm = buf[1:].view(B, S, H, D)
+    k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(bf) for _ in range(2))
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    o = fa._launch(qm.clone(), k, v, True, None, lse=lse)
+    got = fa.flash_attention_bwd(qm, k, v, o, lse, o)
+    want = fa.flash_attention_bwd(qm.clone(), k, v, o, lse, o)
+    same = qm.data_ptr() % 16 != 0 and all(torch.equal(a, b) for a, b in zip(got, want))
+    say(f"[check] flash_attention_bwd q based 2 bytes past 16: equal to the aligned copy's "
+        f"gradients {same} {'ok' if same else 'FAIL'}")
+    check(same, "flash_attention_bwd on a misaligned q")
+    return main_err
+
+
+def phase_flash_bwd_timing():
+    """The backward at olmo-1b's shape (4, 2048, 16, 128) causal bf16: the
+    kernel, its plain version and the library's gradient
+    (``F.scaled_dot_product_attention`` forward + backward, minus its
+    forward, each timed in the same rounds), beside its bound; then the
+    forward with and without the log-sum-exp store.
+
+    The needed work is the five products S, dP, dV, dK and dQ, 2.5 times
+    the forward's 2·B·H·D·S·(S+1) (causal), on the bf16 tensor cores' 989
+    TFLOP/s; pass 2's recompute of S and dP is not counted.  The bytes
+    are q, k, v, o, dO and the log-sum-exp read once and dq, dk, dv
+    written once."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = _flash_module()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, S, H, D = PREFILL_B, PREFILL_S, 16, 128
+    q, k, v = _qkv(B, S, H, H, D, torch.bfloat16, gen)
+    dout = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    o = fa._launch(q, k, v, True, None, lse=lse)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    dot = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        qt.grad = kt.grad = vt.grad = None
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).backward(dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    q4, n = alternating({
+        "kernel": lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout),
+        "plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, dout),
+        "library": sdpa_fwd_bwd,
+        "library_fwd": sdpa_fwd,
+    })
+    lib = q4["library"][1] - q4["library_fwd"][1]
+    fwd_flops = 2 * B * H * D * S * (S + 1)
+    flops = 2.5 * fwd_flops
+    nbytes = 8 * B * S * H * D * 2 + B * H * S * 4
+    row = _bound_row(q4, n, flops, BF16_FLOPS_PER_S, nbytes,
+                     "flash_attention_bwd olmo-1b (4, 2048, 16, 128) bf16 causal",
+                     "F.scaled_dot_product_attention forward + backward")
+    row["library_ms"] = lib
+    row["library_fwd_ms"] = q4["library_fwd"][1]
+    say(f"[time] SDPA's gradient alone (forward + backward {q4['library'][1]:.4f} ms minus its "
+        f"forward {q4['library_fwd'][1]:.4f} ms): {lib:.4f} ms; the kernel is {row['ms'] / lib:.2f}x it")
+    fq, fn = alternating({"kernel": lambda: fa._launch(q, k, v, True, None, lse=lse),
+                          "plain": lambda: fa._launch(q, k, v, True, None)})
+    say(f"[time] flash_attention forward at the same shape: with the log-sum-exp stored median "
+        f"{fq['kernel'][1]:.4f} ms (quartiles {fq['kernel'][0]:.4f}-{fq['kernel'][2]:.4f}), "
+        f"without {fq['plain'][1]:.4f} ms ({fq['plain'][0]:.4f}-{fq['plain'][2]:.4f}) over {fn} "
+        f"launches each")
+    row["forward_with_lse_ms"], row["forward_without_lse_ms"] = fq["kernel"][1], fq["plain"][1]
+    row["forward_quartiles_ms"] = fq
+    del q, k, v, o, dout, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def _lm_batch(ds, rng, batch: int) -> dict:
+    import torch
+
+    toks, labels = ds.sample(rng, batch)
+    return {"tokens": torch.from_numpy(toks).cuda(), "labels": torch.from_numpy(labels).cuda()}
+
+
+def phase_train_step():
+    """olmo-1b at full width and depth in bf16, random weights from seed 0,
+    through ``make_train_step`` with ``make_optimizer_for`` (AdamW, fp32
+    state) on (2, 2048) batches of ``SyntheticLM`` tokens: one warm-up step,
+    TRAIN_STEPS timed ones (host clock ending in a synchronize), each with
+    its launch counts (16 flash_attention forwards with the log-sum-exp
+    stored and 16 backward launches, nothing else), loss finite; one more
+    step under ``torch.profiler``.  First a prefill of the same batch, whose
+    16 forward launches must store no log-sum-exp."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_optimizer_for, make_prefill_step, make_train_step
+    from repro_torch.models import get_model
+
+    fa = _flash_module()
+    cfg = get_config("olmo-1b")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = make_optimizer_for(cfg)
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_S, seed=0)
+    rng = np.random.default_rng(0)
+    batches = [_lm_batch(ds, rng, TRAIN_B) for _ in range(TRAIN_STEPS + 2)]
+    tag = "[train] olmo-1b bf16"
+
+    stores = []
+    launch = fa._launch
+
+    def spy(*a, **kw):
+        stores.append(kw.get("lse") is not None)
+        return launch(*a, **kw)
+
+    fa._launch = spy
+    try:
+        make_prefill_step(model)(params, {"tokens": batches[0]["tokens"]})
+        prefill_stores = list(stores)
+        stores.clear()
+        params, state, loss = step(params, state, batches[0])   # warm-up
+        torch.cuda.synchronize()
+        train_stores = list(stores)
+    finally:
+        fa._launch = launch
+    say(f"{tag}: prefill's forward launches storing the log-sum-exp: {sum(prefill_stores)} of "
+        f"{len(prefill_stores)}; a train step's: {sum(train_stores)} of {len(train_stores)}")
+    L = cfg.n_layers
+    check(len(prefill_stores) == L and not any(prefill_stores),
+          f"the prefill's {L} forward launches store no log-sum-exp")
+    check(len(train_stores) == L and all(train_stores),
+          f"a train step's {L} forward launches store the log-sum-exp")
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, all_launches = [], [], []
+    for b in batches[1:TRAIN_STEPS + 1]:
+        zero_counts()
+        t0 = time.monotonic()
+        params, state, loss = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        all_launches.append(counts())
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    q1, med, q3 = quartiles(times)
+    only = dict.fromkeys(KERNELS, 0) | {"flash_attention": L, "flash_attention_bwd": L}
+    say(f"{tag}: {model.param_count(params):,} params, batch ({TRAIN_B}, {TRAIN_S}): train step "
+        f"median {med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over "
+        f"{TRAIN_STEPS} steps (each {', '.join(f'{t * 1e3:.1f}' for t in times)}); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; launches a step {all_launches[-1]}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    check(all(math.isfinite(x) for x in losses), "train step losses finite")
+    check(all(n == only for n in all_launches),
+          f"a train step launches {L} flash_attention forwards and {L} backwards, got "
+          f"{all_launches}")
+    zero_counts()
+    holder = {}
+
+    def traced():
+        holder["out"] = step(params, state, batches[-1])
+
+    trace = _trace_prefill(traced, tag, "train step")
+    check(counts() == only, "traced train step launches")
+    del params, state, holder, batches
+    torch.cuda.empty_cache()
+    return {"step_s": med, "step_s_quartiles": (q1, med, q3), "step_s_runs": times,
+            "losses": losses, "launches": all_launches[-1], "peak_bytes": peak,
+            "trace": trace, "prefill_lse_stores": sum(prefill_stores)}
+
+
+def phase_trainer_entry():
+    """The trainer as a user calls it: ``repro_torch.launch.train.main``
+    for olmo-1b at full width, 8 steps of (2, 2048); it must return 0 (its
+    exit rule: the last loss below the first)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    zero_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(["--arch", "olmo-1b", "--steps", "8", "--batch", "2", "--seq", "2048"])
+    wall = time.monotonic() - t0
+    launches = counts()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say(f"[trainer] {line}")
+    m = re.search(r"done: loss ([0-9.naif]+) -> ([0-9.naif]+)", text)
+    first, last = (float(m.group(1)), float(m.group(2))) if m else (None, None)
+    say(f"[trainer] exit code {rc} in {wall:.1f} s; first loss {first}, last {last}; "
+        f"launches {launches}")
+    check(rc == 0, "repro_torch.launch.train.main returns 0 (the loss fell)")
+    L = get_config("olmo-1b").n_layers
+    check(launches["flash_attention"] == 8 * L and launches["flash_attention_bwd"] == 8 * L,
+          "the trainer ran its 8 steps through both flash kernels")
+    torch.cuda.empty_cache()
+    return {"rc": rc, "first_loss": first, "last_loss": last, "wall_s": wall,
+            "launches": launches}
+
+
+def _lora_setup(cfg, device, seed_w: int, seed_a: int, silos, opt_fn):
+    """Model, LoRA config, injected params and FL clients for federated
+    LoRA: ``loss = model.loss(lora_effective(p))``, the optimizer masked to
+    the ``.lora_`` leaves."""
+    import torch
+    from repro_torch.federated import FLClient
+    from repro_torch.models import get_model
+    from repro_torch.models.fl_models import LoRAConfig, inject_lora, lora_effective
+    from repro_torch.optim import masked
+
+    model = get_model(cfg)
+    lcfg = LoRAConfig(rank=cfg.lora_rank, alpha=cfg.lora_alpha, targets=cfg.lora_targets)
+    params = model.init(torch.Generator(device=device).manual_seed(seed_w), device)
+    params = inject_lora(params, torch.Generator(device=device).manual_seed(seed_a), lcfg)
+
+    def loss_fn(p, b):
+        return model.loss(lora_effective(p, lcfg), {"tokens": b[0], "labels": b[1]})
+
+    opt = masked(opt_fn(cfg), ".lora_")
+    clients = [FLClient(s.client_id, s, loss_fn, opt, batch_size=2, device=device)
+               for s in silos]
+    return model, params, clients
+
+
+def phase_lora_rounds():
+    """Federated LoRA at full width: olmo-1b in bf16 ``with_lora(2)`` (rank-2
+    adapters on wq, wk, wv and wo, fp32 factors), LORA_SILOS
+    ``make_lm_silos`` silos of 2048-token sequences (4 train, 2 test each,
+    batch 2), ``FLClient(loss_fn=model.loss o lora_effective,
+    optimizer=masked(make_optimizer_for(cfg), ".lora_"))`` under
+    ``AsyncFLServer(schema=lora_adapter_schema())``: 2 rounds uncompressed,
+    then 2 with int8 group deltas (a second server from the first's
+    weights).  After every round every non-adapter leaf must be bit-equal to
+    its initial value; the adapters must have moved; the round's message
+    log must carry the adapters group's wire bytes as
+    ``measure_messages(schema=...)`` counts them, and the fold must have
+    seen that many bytes a silo; an int8 round launches ``dequant_fold``
+    once a silo.  No checkpoints here (the barrier path writes them)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_silos
+    from repro_torch.federated import AsyncFLServer
+    from repro_torch.federated.messages import measure_messages
+    from repro_torch.launch.steps import make_optimizer_for
+    from repro_torch.models.fl_models import lora_adapter_schema
+    from repro_torch.utils.tree import keystr, tree_flatten_with_path
+
+    cfg = get_config("olmo-1b").with_lora(2)
+    silos = make_lm_silos(LORA_SILOS, cfg.vocab_size, TRAIN_S, [(4, 2)] * LORA_SILOS, seed=0)
+    model, params0, clients = _lora_setup(cfg, "cuda", 0, 1, silos, make_optimizer_for)
+    leaves0 = [(keystr(p), t.clone()) for p, t in tree_flatten_with_path(params0)[0]]
+    n_adapter = sum(t.numel() for k, t in leaves0 if ".lora_" in k)
+    n_total = sum(t.numel() for _, t in leaves0)
+    tag = "[lora] olmo-1b bf16 rank 2"
+    say(f"{tag}: {n_total:,} parameters, {n_adapter:,} of them adapters "
+        f"({sum('.lora_' in k for k, _ in leaves0)} factor leaves), {LORA_SILOS} silos")
+    L = cfg.n_layers  # train: 2 batches a silo, eval: 1
+    per_round = {"flash_attention": LORA_SILOS * (2 + 1) * L,
+                 "flash_attention_bwd": LORA_SILOS * 2 * L}
+    rounds_out = []
+
+    def check_round(round_idx, params):
+        moved = 0
+        for (k, t0), (p, t) in zip(leaves0, tree_flatten_with_path(params)[0]):
+            check(keystr(p) == k, "leaf order")
+            if ".lora_" in k:
+                moved += int(not torch.equal(t, t0))
+            else:
+                check(torch.equal(t, t0), f"round {round_idx}: base leaf {k} bit-equal")
+        check(moved > 0, f"round {round_idx}: the adapters moved")
+        return None
+
+    params = params0
+    schema = lora_adapter_schema()
+    for codec, first_round in ((None, 1), ("int8", 3)):
+        server = AsyncFLServer(clients, params, schema=schema, compression=codec,
+                               measure_round_messages=True, post_round_hook=check_round)
+        server.start_round = first_round
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.monotonic()
+        run = server.run(first_round + 1)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        params = run.final_params
+        n_rounds = len(run.rounds)
+        want_launches = dict.fromkeys(KERNELS, 0) | {
+            k: n * n_rounds for k, n in per_round.items()}
+        if codec == "int8":
+            want_launches["dequant_fold"] = LORA_SILOS * n_rounds
+        check(launches == want_launches, f"{codec} rounds launch {want_launches}, got {launches}")
+        ref_log = measure_messages(params, run.rounds[-1].metrics, compression=codec,
+                                   schema=schema)
+        wire = server.agg_engine.stats.total_wire_bytes
+        for rec in run.rounds:
+            log = rec.message_log
+            check(log.group_wire_bytes == ref_log.group_wire_bytes
+                  and log.c_msg_train_bytes == ref_log.c_msg_train_bytes,
+                  f"round {rec.round_idx}: per-group wire bytes as measure_messages counts them")
+            say(f"{tag} round {rec.round_idx} ({codec or 'uncompressed'}): loss "
+                f"{rec.metrics['loss']:.4f}; train {rec.train_time_s:.3f} s, fold "
+                f"{rec.agg_time_s:.4f} s, eval {rec.eval_time_s:.3f} s, checkpoint "
+                f"{rec.checkpoint_time_s:.3f} s; c_msg_train {log.c_msg_train_bytes:,} B a silo "
+                f"(group wire {log.group_wire_bytes}, codec {log.codec}) against dense fp32 "
+                f"{log.c_msg_train_dense_bytes:,} B: {log.compression_ratio:.1f}x")
+            rounds_out.append({"round": rec.round_idx, "codec": codec,
+                               "loss": rec.metrics["loss"], "train_s": rec.train_time_s,
+                               "fold_s": rec.agg_time_s, "eval_s": rec.eval_time_s,
+                               "checkpoint_s": rec.checkpoint_time_s,
+                               "c_msg_train_bytes": log.c_msg_train_bytes,
+                               "dense_bytes": log.c_msg_train_dense_bytes,
+                               "group_wire_bytes": log.group_wire_bytes})
+        check(wire == LORA_SILOS * n_rounds * ref_log.c_msg_train_bytes,
+              "the folds saw each silo's structured frame")
+        say(f"{tag}: {codec or 'uncompressed'} rounds in {wall:.1f} s, launches {launches}, "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        rounds_out[-1]["launches"] = launches
+        rounds_out[-1]["peak_bytes"] = peak
+        rounds_out[-1]["wall_s"] = wall
+    del params, params0, clients, leaves0, server, run
+    torch.cuda.empty_cache()
+    return {"rounds": rounds_out, "adapter_elems": n_adapter, "total_elems": n_total}
+
+
+def phase_train_reference_check():
+    """Reduced olmo-1b in fp32 on the card (kernels) and on the CPU (plain
+    versions) from the same weights: one ``make_train_step`` step (loss
+    within 1e-4; every leaf within 1e-4 relative L2: AdamW's first step
+    moves an element by about lr whatever its gradient's size, so an
+    element whose gradient is rounding noise can differ by ~lr), and one
+    federated LoRA round (``with_lora(2)``, 2 silos, uncompressed, fold
+    cost fixed so the trace's times are arithmetic): adapters within 1e-4,
+    base leaves bit-equal, event traces equal."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, make_lm_silos
+    from repro_torch.federated import AsyncFLServer
+    from repro_torch.launch.steps import make_optimizer_for, make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models.fl_models import lora_adapter_schema
+    from repro_torch.utils.tree import keystr, tree_flatten, tree_flatten_with_path, tree_map
+    import numpy as np
+
+    cfg = get_config("olmo-1b").reduced().with_overrides(dtype="float32", param_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(5), "cpu")
+    batch = _lm_batch(SyntheticLM(cfg.vocab_size, 64, seed=1), np.random.default_rng(1), 2)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), params)
+        opt = make_optimizer_for(cfg)
+        zero_counts()
+        new, _, loss = make_train_step(model, opt)(p, opt.init(p), tree_map(
+            lambda t: t.to(device), batch))
+        runs[device] = ([t.cpu() for t in tree_flatten(new)[0]], float(loss),
+                        counts()["flash_attention_bwd"])
+    (cp, cl, cn), (pp, pl, pn) = runs["cuda"], runs["cpu"]
+    worst = max(((a.double() - b.double()).norm() / b.double().norm()).item()
+                for a, b in zip(cp, pp))
+    ok = abs(cl - pl) <= 1e-4 * max(1.0, abs(pl)) and worst <= 1e-4
+    say(f"[reference] reduced olmo-1b fp32 train step, card against CPU: loss {cl:.6f} / "
+        f"{pl:.6f}, worst leaf relative L2 {worst:.3e} (tol 1e-4); flash_attention_bwd "
+        f"launches card {cn}, cpu {pn} {'ok' if ok else 'FAIL'}")
+    check(ok and cn == cfg.n_layers and pn == 0, "reduced train step: card agrees with the CPU")
+
+    lcfg = cfg.with_lora(2)
+    out = {"train_loss": (cl, pl), "train_worst_rel_l2": worst}
+    results = {}
+    for device in ("cuda", "cpu"):
+        silos = make_lm_silos(2, lcfg.vocab_size, 32, [(4, 2), (4, 2)], seed=2)
+        _, p0, clients = _lora_setup(lcfg, "cpu", 6, 7, silos, make_optimizer_for)
+        for c in clients:
+            c.device = torch.device(device)
+        server = AsyncFLServer(clients, p0, schema=lora_adapter_schema(), fold_cost_s=0.01,
+                               device=device)
+        zero_counts()
+        run = server.run(1)
+        trace = []
+        for e in server.bus.trace:
+            d = dataclasses.asdict(e)
+            if type(e).__name__ in ("RoundDispatched", "CheckpointSaved", "RecoveryCompleted"):
+                d = {k: v for k, v in d.items() if k not in ("time_s", "span_s", "overhead_s")}
+            trace.append((type(e).__name__, d))
+        results[device] = ([(keystr(k), t.cpu()) for k, t in
+                            tree_flatten_with_path(run.final_params)[0]],
+                           [(keystr(k), t.cpu()) for k, t in tree_flatten_with_path(p0)[0]],
+                           trace, counts()["flash_attention_bwd"])
+    (cpar, cp0, ctr, cn), (ppar, pp0, ptr, pn) = results["cuda"], results["cpu"]
+    base_equal = all(torch.equal(a, b) and torch.equal(a, a0) for (k, a), (_, b), (_, a0)
+                     in zip(cpar, ppar, cp0) if ".lora_" not in k)
+    ad_err = max((a - b).abs().max().item() for (k, a), (_, b) in zip(cpar, ppar)
+                 if ".lora_" in k)
+    ok = base_equal and ad_err <= 1e-4 and ctr == ptr
+    say(f"[reference] reduced olmo-1b fp32 federated LoRA round (2 silos), card against CPU: "
+        f"adapters max|diff| {ad_err:.3e} (tol 1e-4), base bit-equal {base_equal}, traces "
+        f"equal {ctr == ptr}; flash_attention_bwd launches card {cn}, cpu {pn} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok and cn > 0 and pn == 0, "reduced federated LoRA round: card agrees with the CPU")
+    out.update(lora_adapter_max_diff=ad_err, lora_base_equal=base_equal,
+               lora_traces_equal=ctr == ptr)
+    return out
+
+
 def main() -> int:
     import torch
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce  # noqa: F401 (fail early)
@@ -1267,14 +1803,16 @@ def main() -> int:
         return 1
     t_start = time.monotonic()
     smi = phase_device()
-    sass = phase_build()
+    sass, ptxas = phase_build()
     main_err = phase_kernel_check()
     dq_err = phase_dequant_check()
     flash_err = phase_flash_check()
+    bwd_err = phase_flash_bwd_check()
     ssd_err = phase_ssd_check()
     timing = phase_kernel_timing()
     dq_timing = phase_dequant_timing()
     zoo_timing = phase_zoo_timing()
+    bwd_timing = phase_flash_bwd_timing()
     fold = phase_fold_breakdown()
     compressed_split = phase_compressed_breakdown()
     build_root = ROOT / "build"
@@ -1286,6 +1824,10 @@ def main() -> int:
     compressed_reference = phase_compressed_reference_check()
     zoo = phase_zoo_paths()
     zoo_reference = phase_zoo_reference_check()
+    train_step = phase_train_step()
+    trainer = phase_trainer_entry()
+    lora = phase_lora_rounds()
+    train_reference = phase_train_reference_check()
 
     dq = dq_timing["int8"]
     kernels = [{
@@ -1332,14 +1874,29 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    kernels.insert(3, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:97",
+        "launches": train_step["launches"]["flash_attention_bwd"],
+        "max_abs_err": bwd_err,
+        "ms": bwd_timing["ms"],
+        "plain_ms": bwd_timing["plain_ms"],
+        "bound_ms": bwd_timing["bound_ms"],
+        "bound_by": bwd_timing["bound_by"],
+        "library_ms": bwd_timing["library_ms"],
+    })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "nvidia_smi": smi, "sass_counts": sass, "kernels": kernels, "timing": timing, "fold": fold, "path": path,
+        "nvidia_smi": smi, "sass_counts": sass, "ptxas": ptxas, "kernels": kernels, "timing": timing, "fold": fold, "path": path,
         "reference": reference, "dequant_timing": dq_timing,
         "compressed_breakdown": compressed_split, "compressed_path": compressed,
         "compressed_reference": compressed_reference, "zoo_timing": zoo_timing, "zoo": zoo,
-        "zoo_reference": zoo_reference, "seconds": time.monotonic() - t_start,
+        "zoo_reference": zoo_reference, "flash_bwd_timing": bwd_timing,
+        "train_step": train_step, "trainer": trainer, "lora": lora,
+        "train_reference": train_reference, "seconds": time.monotonic() - t_start,
     }, indent=1))
     say(f"[done] {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

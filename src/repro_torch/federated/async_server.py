@@ -40,9 +40,12 @@ fp32 accumulator — int8 and fp16 through the ``dequant_fold`` kernel.
 A compressed update that misses the deadline is materialized against its
 own round's base before it is parked.
 
-Structured updates (``schema=``, ``ROADMAP.md`` queue 1, item 11) and
-partial sums (``emit_partial=True``, item 13) raise
-``NotImplementedError``.
+With ``schema=`` updates are structured: each client's update is encoded
+as a :class:`~repro_torch.federated.compression.StructuredUpdate` of the
+schema's named groups (per-group error feedback when compression is on)
+and folded by the per-group aggregator; federated LoRA ships and folds
+only its adapters.  Partial sums (``emit_partial=True``, ``ROADMAP.md``
+queue 1, item 13) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -71,13 +74,19 @@ from .agg_engine import (
     AggregationEngine,
     CarryEntry,
     CarryOverBuffer,
+    ResolvedSchema,
     StalenessPolicy,
+    UpdateSchema,
+    as_update_schema,
     plan_for,
 )
 from .client import ClientResult, synchronize, tree_device
 from .compression import (
     ClientCompressor,
     CompressedUpdate,
+    StructuredCompressor,
+    StructuredUpdate,
+    materialize_structured,
     materialize_update,
     parse_compression,
 )
@@ -99,8 +108,6 @@ __all__ = [
     "RevocationInjector",
     "RoundDeadline",
 ]
-
-_STRUCTURED = "ROADMAP.md queue 1, item 11 (structured updates)"
 
 
 # ---------------------------------------------------------------------------
@@ -500,8 +507,9 @@ class AsyncRoundEngine:
         RoundClosed — all on the round's virtual clock).  None creates a
         private recording bus; pass ``repro_torch.core.events.NULL_BUS`` to
         disable tracing entirely.
-    schema : structured updates (``ROADMAP.md`` queue 1, item 11); only
-        None is taken here.
+    schema : an :class:`~repro_torch.federated.agg_engine.UpdateSchema` (or a
+        group mapping): rounds with a base fold through the per-group
+        :class:`~repro_torch.federated.agg_engine.StructuredStreamingAggregator`.
     staleness_policy : the carried-over weight rule; None keeps
         ``AgeDiscount(carry_discount)``.
     """
@@ -517,11 +525,9 @@ class AsyncRoundEngine:
         carry_discount: float = 0.5,
         escalate_after: int = 2,
         bus: Optional[EventBus] = None,
-        schema: Any = None,
+        schema: Union[None, UpdateSchema, Mapping[str, Any]] = None,
         staleness_policy: Optional[StalenessPolicy] = None,
     ) -> None:
-        if schema is not None:
-            raise NotImplementedError(f"structured updates: {_STRUCTURED}")
         if on_revocation not in ("rerequest", "exclude"):
             raise ValueError("on_revocation must be 'rerequest' or 'exclude'")
         if not 0.0 <= carry_discount <= 1.0:
@@ -535,6 +541,10 @@ class AsyncRoundEngine:
         self.carry_discount = carry_discount
         self.escalate_after = escalate_after
         self.bus = bus if bus is not None else EventBus()
+        # Structured updates: rounds with a base fold through the
+        # per-group StructuredStreamingAggregator under this schema.
+        self.schema = as_update_schema(schema)
+        self._resolved_schema: Optional[ResolvedSchema] = None
         # Carried-over weight rule; None keeps the age discount
         # (AgeDiscount(carry_discount) — bit-identical arithmetic).
         self.staleness_policy = staleness_policy
@@ -546,6 +556,15 @@ class AsyncRoundEngine:
         self.stragglers = StragglerTracker(escalate_after)
 
     # ------------------------------------------------------------------
+    def _resolve_schema(self, base_params: Any) -> Optional[ResolvedSchema]:
+        if self.schema is None or base_params is None:
+            return None
+        plan = plan_for(base_params)
+        if (self._resolved_schema is None
+                or self._resolved_schema.plan.signature != plan.signature):
+            self._resolved_schema = self.schema.resolve(base_params)
+        return self._resolved_schema
+
     def _park_delta_norm(
         self, park_params: Any, base_params: Any
     ) -> Optional[float]:
@@ -560,9 +579,19 @@ class AsyncRoundEngine:
         return float(self._distance_to_base(park_params, base_params))
 
     def _distance_to_base(self, params: Any, base_params: Any) -> float:
-        """L2 distance between an update tree and the given global weights
-        (in fp32, as the reference's ``np.linalg.norm`` of fp32 vectors;
-        the two sum in other orders, so they agree to rounding)."""
+        """L2 distance between an update (a tree, or per-group raw vectors)
+        and the given global weights (in fp32, as the reference's
+        ``np.linalg.norm`` of fp32 vectors; the two sum in other orders, so
+        they agree to rounding)."""
+        if isinstance(params, Mapping) and self.schema is not None:
+            resolved = self._resolve_schema(base_params)
+            if resolved is not None and all(k in dict(resolved.groups) for k in params):
+                total = 0.0
+                for name, vec in params.items():
+                    g = resolved.group(name).flatten(base_params)
+                    d = torch.as_tensor(vec).to(g.device, torch.float32) - g
+                    total += float(torch.dot(d, d))
+                return math.sqrt(total)
         plan = plan_for(base_params)
         g = plan.flatten(base_params)
         d_full = plan.flatten(params).to(g.device) - g
@@ -665,6 +694,7 @@ class AsyncRoundEngine:
         agg = self.agg_engine.streaming(
             base=base_params,
             base_round=round_idx if base_params is not None else None,
+            schema=self.schema if base_params is not None else None,
         )
         events: List[FoldEvent] = []
         excluded: List[str] = []
@@ -741,6 +771,11 @@ class AsyncRoundEngine:
                     # the next round's aggregator has a different one.
                     # Materialize now, while the origin base is on hand.
                     park_params = materialize_update(base_params, park_params)
+                elif isinstance(park_params, StructuredUpdate):
+                    # The same base-pinning applies per group: materialize
+                    # to {group: raw fp32 values} before parking.
+                    park_params = materialize_structured(
+                        base_params, park_params, self._resolve_schema(base_params))
                 self.carry.defer(
                     CarryEntry(cid, park_params, float(res.n_samples),
                                origin_round=round_idx,
@@ -932,12 +967,10 @@ class AsyncFLServer(FLServer):
         escalate_after: int = 2,
         on_straggler: Optional[Any] = None,
         compression: Optional[Any] = None,
-        schema: Any = None,
+        schema: Union[None, UpdateSchema, Mapping[str, Any]] = None,
         staleness_policy: Optional[StalenessPolicy] = None,
         **kwargs: Any,
     ) -> None:
-        if schema is not None:
-            raise NotImplementedError(f"structured updates: {_STRUCTURED}")
         super().__init__(clients, initial_params, **kwargs)
         self.schedule = schedule if schedule is not None else InstantSchedule()
         # `compression` turns on the compressed wire path: each client's
@@ -948,6 +981,12 @@ class AsyncFLServer(FLServer):
         # encoding, producing bit-identical updates for parity.
         self._compression = parse_compression(compression)
         self._compressors: Dict[str, ClientCompressor] = {}
+        # `schema` turns on structured updates: each client's update is
+        # re-encoded as a StructuredUpdate carrying only the schema's
+        # named groups (per-group error feedback when compression is also
+        # on), folded through the per-group aggregator.
+        self._schema = as_update_schema(schema)
+        self._struct_encoders: Dict[str, StructuredCompressor] = {}
         self._round_engine = AsyncRoundEngine(
             self.agg_engine,
             on_revocation=on_revocation,
@@ -958,6 +997,7 @@ class AsyncFLServer(FLServer):
             carry_discount=carry_discount,
             escalate_after=escalate_after,
             bus=self.bus,
+            schema=self._schema,
             staleness_policy=staleness_policy,
         )
         self.on_straggler = on_straggler
@@ -981,9 +1021,32 @@ class AsyncFLServer(FLServer):
             client_id, ClientCompressor(self._compression)
         )
 
+    def _structured_encoder_for(self, client_id: str) -> StructuredCompressor:
+        """Per-client structured encoder (holds per-group error feedback)."""
+        enc = self._struct_encoders.get(client_id)
+        if enc is None:
+            enc = StructuredCompressor(self._schema, self._compression)
+            self._struct_encoders[client_id] = enc
+        return enc
+
     def _fold_phase(self, round_idx: int, results: Sequence[ClientResult]) -> FoldReport:
         base = None
-        if self._compression is not None:
+        if self._schema is not None:
+            # Structured rounds: clients ship only the schema's named
+            # groups.  self.params is still the dispatched global weights
+            # (updated only after the fold), so it is both the encoding
+            # base and the aggregation base.
+            base = self.params
+            results = [
+                dataclasses.replace(
+                    r,
+                    params=self._structured_encoder_for(r.client_id).encode(
+                        base, r.params, base_round=round_idx
+                    ),
+                )
+                for r in results
+            ]
+        elif self._compression is not None:
             # self.params is still the round's dispatched global weights
             # here (updated only after the fold), so it is both the delta
             # base for encoding and the aggregation base for folding.

@@ -8,7 +8,12 @@ metrics.
 
 Gradients come from ``torch.autograd.grad`` on detached copies of the
 leaves, and the optimizer updates out of place, so the global tree the
-server hands every client is never written to.  Batches come off the
+server hands every client is never written to.  Under a
+:class:`~repro_torch.optim.MaskedOptimizer` (federated LoRA) only the
+leaves it trains take a gradient: the reference differentiates every
+leaf and the mask then drops the frozen leaves' update, so the result is
+the same, but at olmo-1b's width that is a weight-gradient product for
+1.18 B frozen parameters every step.  Batches come off the
 silo as numpy and go to the client's ``device`` (the default
 ``batch_fn``).  With ``compression=`` the client owns a
 :class:`~repro_torch.federated.compression.ClientCompressor`, so its
@@ -23,6 +28,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..optim.optimizers import MaskedOptimizer
 from ..utils.tree import tree_flatten, tree_unflatten
 
 Device = Union[str, torch.device]
@@ -115,11 +121,16 @@ class FLClient:
 
     def _train_step(self, params: Any, opt_state: Any, batch: Any):
         leaves, treedef = tree_flatten(params)
-        live = [leaf.detach().requires_grad_(True) for leaf in leaves]
+        if isinstance(self.optimizer, MaskedOptimizer):
+            trains = tree_flatten(self.optimizer.trainable_mask(params))[0]
+        else:
+            trains = [True] * len(leaves)
+        live = [leaf.detach().requires_grad_(t) for leaf, t in zip(leaves, trains)]
         loss = self.loss_fn(tree_unflatten(treedef, live), batch)
-        grads = torch.autograd.grad(loss, live)
+        got = iter(torch.autograd.grad(loss, [x for x, t in zip(live, trains) if t]))
+        grads = [next(got) if t else None for t in trains]
         params, opt_state = self.optimizer.update(
-            tree_unflatten(treedef, list(grads)), opt_state, params
+            tree_unflatten(treedef, grads), opt_state, params
         )
         return params, opt_state, loss.detach()
 

@@ -1,6 +1,6 @@
 """Client-side update compression for the c_msg_train wire path.
 
-The port of the whole-model half of ``repro/federated/compression.py``.
+The port of ``repro/federated/compression.py``.
 Real inter-cloud WAN links (the paper's AWS<->GCP deployment, §5) give a
 few percent of loopback throughput, so wire bytes dominate the Eq.-7
 communication term.  Each client's *delta* against the round's global
@@ -32,14 +32,19 @@ them it keeps.  Frames go through the port's own msgpack subset
 
 A :class:`CompressedUpdate` holds torch tensors; the server folds its
 payload straight into the fp32 accumulator through the ``dequant_fold``
-kernel and never makes a dense fp32 copy.  ``StructuredUpdate`` and
-``StructuredCompressor`` come with the structured-updates slice
-(``ROADMAP.md`` queue 1, item 11).
+kernel and never makes a dense fp32 copy.
+
+Structured updates (:class:`StructuredUpdate`, :class:`StructuredCompressor`)
+carry only named parameter groups of the model (an
+:class:`~repro_torch.federated.agg_engine.UpdateSchema`): each group
+ships its raw fp32 values or, with a codec, its compressed delta with an
+error-feedback residual of its own.  Their frames are the reference's
+byte for byte too.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -426,3 +431,200 @@ class ClientCompressor:
 
     def reset(self) -> None:
         self._residual = None
+
+
+# ---------------------------------------------------------------------------
+# Structured updates: named parameter groups on the wire
+# ---------------------------------------------------------------------------
+
+# A group's wire payload is either raw fp32 *values* (a 1-D tensor: the
+# group's current parameters, when the group needs no codec) or a
+# CompressedUpdate *delta* against the group's slice of the round base.
+GroupPayload = Union[torch.Tensor, CompressedUpdate]
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuredUpdate:
+    """One client's structured ``c_msg_train``: named per-group payloads.
+
+    Only the groups the client trained ride the wire: a federated-LoRA
+    client ships just its ``adapters`` group.  ``schema_signature`` pins
+    the exact (model structure x group partition) the payloads were
+    encoded under; the structured aggregator refuses a fold under any
+    other schema.  ``base_round`` tags the round whose global weights
+    compressed group deltas were taken against (raw-value groups are
+    base-independent)."""
+
+    groups: Tuple[Tuple[str, GroupPayload], ...]
+    schema_signature: str
+    base_round: Optional[int] = None
+
+    @property
+    def wire_bytes(self) -> int:
+        """Serialized frame size (what actually crosses the transport)."""
+        return len(serialize_structured(self))
+
+    @property
+    def dense_bytes(self) -> int:
+        """Dense fp32 equivalent of the *shipped* groups only."""
+        return sum(self.group_dense_bytes().values())
+
+    def group_wire_bytes(self) -> Dict[str, int]:
+        """Per-group serialized payload sizes (RoundMessageLog accounting)."""
+        return {name: len(packb(_group_obj(payload))) for name, payload in self.groups}
+
+    def group_dense_bytes(self) -> Dict[str, int]:
+        """Per-group dense fp32 equivalents."""
+        return {
+            name: (payload.dense_bytes if isinstance(payload, CompressedUpdate)
+                   else int(torch.as_tensor(payload).numel()) * 4)
+            for name, payload in self.groups
+        }
+
+    def group_names(self) -> Tuple[str, ...]:
+        return tuple(n for n, _ in self.groups)
+
+
+def _group_obj(payload: GroupPayload) -> Dict[str, Any]:
+    if isinstance(payload, CompressedUpdate):
+        return _update_obj(payload)
+    vec = torch.as_tensor(payload).reshape(-1).to(torch.float32)
+    return {"raw": _tensor_bytes(vec), "n": int(vec.numel())}
+
+
+def serialize_structured(update: StructuredUpdate) -> bytes:
+    """msgpack wire form of a structured update (a c_msg_train payload)."""
+    obj: Dict[str, Any] = {
+        "v": _WIRE_VERSION,
+        "structured": 1,
+        "sig": update.schema_signature,
+        "groups": [[name, _group_obj(p)] for name, p in update.groups],
+    }
+    if update.base_round is not None:
+        obj["br"] = int(update.base_round)
+    return packb(obj)
+
+
+def deserialize_structured(payload: bytes) -> StructuredUpdate:
+    """Decode a structured c_msg_train payload into CPU tensors (typed
+    errors, like :func:`deserialize_update`, so §4.3 re-request recovery
+    applies)."""
+    try:
+        obj = unpackb(payload)
+    except Exception as exc:  # noqa: BLE001 — any parse failure is corruption
+        raise DeserializationError(f"malformed structured update frame: {exc}") from exc
+    if not isinstance(obj, dict) or obj.get("structured") != 1:
+        raise DeserializationError("not a structured update frame")
+    if obj.get("v") != _WIRE_VERSION:
+        raise DeserializationError(f"unsupported structured update version {obj.get('v')!r}")
+    sig = obj.get("sig")
+    if not isinstance(sig, str) or not sig:
+        raise DeserializationError("structured update frame has no schema tag")
+    base_round = obj.get("br")
+    if base_round is not None and not isinstance(base_round, int):
+        raise DeserializationError(f"bad base round tag {base_round!r} in structured frame")
+    raw_groups = obj.get("groups")
+    if not isinstance(raw_groups, list) or not raw_groups:
+        raise DeserializationError("structured update frame has no groups")
+    groups: List[Tuple[str, GroupPayload]] = []
+    for entry in raw_groups:
+        if (not isinstance(entry, (list, tuple)) or len(entry) != 2
+                or not isinstance(entry[0], str) or not isinstance(entry[1], dict)):
+            raise DeserializationError("structured update group entry is not [name, payload]")
+        name, sub = entry
+        if "raw" in sub:
+            raw = sub.get("raw")
+            n = sub.get("n")
+            if not isinstance(raw, _BYTES):
+                raise DeserializationError(f"group {name!r} raw payload is not bytes")
+            if not isinstance(n, int) or n <= 0 or len(raw) != 4 * n:
+                raise DeserializationError(
+                    f"group {name!r} raw payload length {len(raw)} != 4 * {n!r}")
+            groups.append((name, _from_bytes(raw, np.dtype(np.float32))))
+        else:
+            groups.append((name, _decode_update_obj(sub)))
+    return StructuredUpdate(groups=tuple(groups), schema_signature=sig, base_round=base_round)
+
+
+def materialize_structured(base: Any, update: StructuredUpdate, schema: Any) -> Dict[str, torch.Tensor]:
+    """Base-independent raw-values form of a structured update, for
+    carry-over parking: compressed group deltas only mean something
+    against their origin round's base, so a parked update is pinned to
+    per-group raw fp32 *values* (on the base's device) while that base is
+    still on hand.  The structured aggregator folds the returned
+    ``{group: vector}`` mapping in any later round."""
+    resolved = schema if hasattr(schema, "plan") else schema.resolve(base)
+    if update.schema_signature != resolved.signature:
+        raise ValueError(
+            f"structured update was encoded under schema "
+            f"{update.schema_signature}, not {resolved.signature}"
+        )
+    out: Dict[str, torch.Tensor] = {}
+    for name, payload in update.groups:
+        gp = resolved.group(name)
+        if isinstance(payload, CompressedUpdate):
+            if payload.total_elems != gp.total_elems:
+                raise ValueError(
+                    f"group {name!r} update has {payload.total_elems} "
+                    f"elements; the group has {gp.total_elems}"
+                )
+            g = gp.flatten(base)
+            out[name] = g + decompress(payload).to(g.device)
+        else:
+            out[name] = torch.as_tensor(payload).to(torch.float32)
+    return out
+
+
+class StructuredCompressor:
+    """Per-client structured encoder: one payload per schema group.
+
+    Without a codec each group ships its raw fp32 *values* (already a huge
+    win when the schema selects a small group like LoRA adapters); with a
+    :class:`CompressionSpec` each group's *delta* against the round base
+    is compressed on its own, with its own error-feedback residual (a
+    group the client skips a round keeps its residual).  The schema is
+    resolved against the first round's global weights and re-resolved
+    only when the structure changes."""
+
+    def __init__(self, schema: Any, spec: Union[None, str, CompressionSpec] = None) -> None:
+        from .agg_engine import as_update_schema
+
+        self.schema = as_update_schema(schema)
+        if self.schema is None:
+            raise ValueError("StructuredCompressor needs a schema")
+        self.spec = parse_compression(spec)
+        self._resolved: Any = None
+        self._residuals: Dict[str, torch.Tensor] = {}
+
+    def _resolve(self, params: Any) -> Any:
+        from .agg_engine import plan_for
+
+        plan = plan_for(params)
+        if self._resolved is None or self._resolved.plan.signature != plan.signature:
+            assert self.schema is not None
+            self._resolved = self.schema.resolve(params)
+        return self._resolved
+
+    def encode(self, global_params: Any, local_params: Any,
+               base_round: Optional[int] = None) -> StructuredUpdate:
+        """Encode every schema group of this round's update."""
+        resolved = self._resolve(global_params)
+        groups: List[Tuple[str, GroupPayload]] = []
+        for name, gp in resolved.groups:
+            p = gp.flatten(local_params)
+            if self.spec is None:
+                groups.append((name, p))
+                continue
+            delta = p - gp.flatten(global_params).to(p.device)
+            residual = self._residuals.get(name)
+            if self.spec.error_feedback and residual is not None:
+                delta = delta + residual
+            update = compress(delta, self.spec, base_round=base_round)
+            if self.spec.error_feedback:
+                self._residuals[name] = delta - decompress(update)
+            groups.append((name, update))
+        return StructuredUpdate(groups=tuple(groups), schema_signature=resolved.signature,
+                                base_round=base_round if self.spec is not None else None)
+
+    def reset(self) -> None:
+        self._residuals = {}

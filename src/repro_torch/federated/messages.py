@@ -11,10 +11,10 @@ sends, so the counts agree byte for byte.
 With wire compression the ``c_msg_train`` leg carries a quantized or
 sparsified delta: ``c_msg_train_bytes`` is then the *wire* size, and
 ``c_msg_train_dense_bytes`` keeps the dense fp32 equivalent so reports
-can state the achieved compression ratio.  Structured ``c_msg_train``
-legs (``schema=``) and ``to_cost_model_sizes`` come with the
-structured-updates and builder slices (``ROADMAP.md`` queue 1, items 11
-and 9).
+can state the achieved compression ratio.  With a ``schema`` the leg is
+a structured frame and the log carries per-group wire and dense bytes.
+``to_cost_model_sizes`` comes with the port of ``Experiment`` (``ROADMAP.md``
+queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -23,7 +23,13 @@ from typing import Any, Dict, Optional, Union
 
 from ..checkpoint._msgpack import packb
 from ..checkpoint.serializer import pytree_num_bytes, serialize_pytree
-from .compression import CompressionSpec, compressed_wire_bytes, parse_compression
+from .compression import (
+    CompressionSpec,
+    StructuredCompressor,
+    compressed_wire_bytes,
+    parse_compression,
+    serialize_structured,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +43,9 @@ class RoundMessageLog:
     # fp32 size the same update would have cost uncompressed.
     codec: str = "none"
     c_msg_train_dense_bytes: Optional[int] = None
-    # Structured-update accounting (None = unstructured round, the only
-    # kind this port runs yet).
+    # Structured-update accounting: per-group wire and dense fp32 bytes
+    # of the c_msg_train leg when clients ship named parameter groups
+    # (None = unstructured round).
     group_wire_bytes: Optional[Dict[str, int]] = None
     group_dense_bytes: Optional[Dict[str, int]] = None
 
@@ -68,19 +75,38 @@ def measure_messages(
     params: Any,
     metrics_example: Dict[str, float],
     compression: Union[None, str, CompressionSpec] = None,
+    schema: Any = None,
 ) -> RoundMessageLog:
     """Measure real serialized sizes for one round's message set.
 
     With ``compression`` the ``c_msg_train`` leg is the compressed frame
     size (exact: compressed frames are fixed-width given the element
     count), and the dense fp32 equivalent is reported alongside; the
-    server -> client legs always ship dense weights."""
+    server -> client legs always ship dense weights.
+
+    With a ``schema`` (an :class:`~repro_torch.federated.agg_engine.UpdateSchema`
+    or a group mapping) the ``c_msg_train`` leg is a structured frame:
+    only the named groups ride the wire, per-group byte maps fill
+    ``group_wire_bytes``/``group_dense_bytes``, and the dense equivalent
+    stays the FULL model's fp32 size."""
     weight_bytes = len(serialize_pytree(params))
     c_train_bytes = weight_bytes
     codec = "none"
     dense: Optional[int] = None
+    group_wire: Optional[Dict[str, int]] = None
+    group_dense: Optional[Dict[str, int]] = None
     spec = parse_compression(compression)
-    if spec is not None:
+    if schema is not None:
+        from .agg_engine import plan_for
+
+        comp = StructuredCompressor(schema, spec)
+        update = comp.encode(params, params, base_round=0)
+        c_train_bytes = len(serialize_structured(update))
+        group_wire = update.group_wire_bytes()
+        group_dense = update.group_dense_bytes()
+        dense = plan_for(params).total_elems * 4
+        codec = "structured" if spec is None else f"structured:{spec.codec}"
+    elif spec is not None:
         from .agg_engine import plan_for
 
         total = plan_for(params).total_elems
@@ -94,6 +120,8 @@ def measure_messages(
         c_msg_test_bytes=len(serialize_metrics(metrics_example)),
         codec=codec,
         c_msg_train_dense_bytes=dense,
+        group_wire_bytes=group_wire,
+        group_dense_bytes=group_dense,
     )
 
 

@@ -191,9 +191,11 @@ class FLServer:
         log = None
         if self.measure_round_messages:
             # AsyncFLServer sets _compression when the wire path is
-            # compressed; the log then carries wire vs dense c_msg_train.
+            # compressed and _schema when updates are structured; the log
+            # then carries wire vs dense c_msg_train (and per-group maps).
             log = measure_messages(self.params, metrics,
-                                   compression=getattr(self, "_compression", None))
+                                   compression=getattr(self, "_compression", None),
+                                   schema=getattr(self, "_schema", None))
         return RoundRecord(
             round_idx=round_idx,
             train_time_s=train_time,

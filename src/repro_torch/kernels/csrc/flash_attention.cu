@@ -1,4 +1,4 @@
-// flash_attention: causal or full GQA attention, forward only, with an
+// flash_attention: causal or full GQA attention, the forward, with an
 // optional sliding window, written by hand for Hopper (sm_90a).
 //
 // Replaces repro/kernels/flash_attention.py::_flash_kernel, the Pallas TPU
@@ -65,6 +65,10 @@
 // banks); the probability tile is written over the key tile once the
 // scores are formed, so D = 128 needs 98 KB and two blocks fit an SM.
 //
+// With a non-null `lse` both paths also write the row log-sum-exp of the
+// scaled scores, fp32 (B, H, S), natural log (+inf for a row with no key in
+// range), which flash_attention_bwd.cu reads; the prefill passes null.
+//
 // Interface: plain C, loaded with ctypes.  Returns cudaGetLastError() after
 // the launch (0 = launched), or cudaErrorInvalidValue for arguments it does
 // not take (for bf16 also a base address or a stride that is not a multiple
@@ -88,6 +92,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S) row log-sum-exp for the backward, or null
   int B, S, H, KV;
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int causal, window;
@@ -252,6 +257,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + 4 * ty + i;
     if (s >= S) continue;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<int64_t>(b) * a.H + h) * S + s] = l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
     const float li = l[i] == 0.f ? 1.f : l[i];  // rows with no key in range -> 0
     float* orow = ob + ((static_cast<int64_t>(b) * S + s) * a.H + h) * D;
 #pragma unroll
@@ -276,6 +283,7 @@ constexpr int kBoxBytes = 128 * kBox * 2;  // a 128-row box: 16 KB
 
 struct WsArgs {
   void* o;
+  float* lse;
   int S, H, KV;
   int causal, window;
   float scale_log2;  // 1/sqrt(D) * log2(e): the softmax runs in base 2
@@ -613,11 +621,16 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
 
     // Epilogue: o / l in bf16, rows past S not stored; l == 0 gives 0.
+    // The row log-sum-exp, if asked for, in natural log: m and l are kept
+    // in base 2 with the scale folded in.
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = r0 + 8 * half;
       if (row >= S) continue;
+      if (a.lse != nullptr && t == 0)
+        a.lse[(static_cast<int64_t>(b) * a.H + h) * S + row] =
+            l[half] == 0.f ? INFINITY : (m[half] + log2f(l[half])) * 0.6931471805599453f;
       const float inv = l[half] == 0.f ? 0.f : 1.f / l[half];
       __nv_bfloat16* orow = ob + ((static_cast<int64_t>(b) * S + row) * a.H + h) * D;
 #pragma unroll
@@ -686,7 +699,7 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
       !make_map(enc, &tv, a.v, a.B, a.S, a.KV, D, a.vsb, a.vss, a.vsh)) {
     return cudaErrorInvalidValue;
   }
-  const WsArgs w{a.o, a.S, a.H, a.KV, a.causal, a.window, a.scale * 1.4426950408889634f};
+  const WsArgs w{a.o, a.lse, a.S, a.H, a.KV, a.causal, a.window, a.scale * 1.4426950408889634f};
   constexpr int smem = ws_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -711,7 +724,7 @@ cudaError_t launch(const Args& a, bool bf16, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int S, int H, int KV, int D,
+                                      float* lse, int B, int S, int H, int KV, int D,
                                       int64_t qsb, int64_t qss, int64_t qsh,
                                       int64_t ksb, int64_t kss, int64_t ksh,
                                       int64_t vsb, int64_t vss, int64_t vsh,
@@ -721,7 +734,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       static_cast<int64_t>(B) * H > 0x7fffffff || (S + kBQ - 1) / kBQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, B, S, H, KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+  const Args a{q, k, v, o, lse, B, S, H, KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
                causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128)) {

@@ -167,7 +167,8 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: t
             t.requires_grad for t in (x, dt, A, B_mat, C_mat)):
         raise RuntimeError(
             "ssd_chunk_scan has no backward (neither has the reference's Pallas kernel); "
-            "training through it comes with ROADMAP.md queue 1, item 17 (training the zoo)")
+            "training mamba2 on a card waits for the SSD backward kernel, ROADMAP.md "
+            "queue 2 (TPU kernels to port), item 6")
     x, B_mat, C_mat = (_as_vectorized(t) for t in (x, B_mat, C_mat))
     dt = dt.float()
     A = A.float().contiguous()

@@ -1,8 +1,11 @@
 """Unified model API, the port of ``repro/models/api.py``: one dispatch
 point over the architecture families.
 
-Ported: ``dense``, ``vlm`` and ``ssm`` (init, loss forward, prefill,
-cache, decode, parameter counts).  ``moe``, ``hybrid`` and ``encdec``
+Ported: ``dense``, ``vlm`` and ``ssm`` (init, loss, prefill, cache,
+decode, parameter counts).  ``loss`` is differentiable; on a card the
+``dense`` and ``vlm`` families train through the attention kernels'
+backward, while ``ssm`` trains on the CPU only (the SSD scan kernel has
+no backward yet and raises).  ``moe``, ``hybrid`` and ``encdec``
 raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Per-family inputs (all batched):
@@ -51,7 +54,7 @@ class ModelFamily:
             return S.init_ssm_lm(gen, self.cfg, device)
         return T.init_lm(gen, self.cfg, device)
 
-    # -- loss (forward only) ---------------------------------------------------
+    # -- loss ------------------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg, a = self.cfg, self._family()
         if a == "dense":

@@ -18,12 +18,17 @@ layer, so ``fc0`` sees its inputs in the reference's order.
 ``init_*`` draw from an explicit ``torch.Generator`` (on the generator's
 device) and place the tree on ``device``.  The same generator seed does
 not give the reference's weights: tests carry those over instead.
+
+The LoRA helpers at the end (``inject_lora``, ``lora_effective``,
+``merge_lora``, ``lora_adapter_schema``, ``lora_merge_hook``) work on any
+dict tree, the zoo's included: federated LoRA trains and ships only the
+injected factors.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -223,3 +228,151 @@ def shakespeare_loss(p: Params, tokens: torch.Tensor, labels: torch.Tensor,
                      cfg: LSTMConfig = LSTMConfig()) -> torch.Tensor:
     logp = F.log_softmax(shakespeare_forward(p, tokens, cfg), dim=-1)
     return -logp.gather(-1, labels.long()[..., None]).mean()
+
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters (federated fine-tuning of a frozen base)
+# ---------------------------------------------------------------------------
+# `inject_lora` adds a rank-r pair of factors beside each target weight
+# (`<key>.lora_a`, `<key>.lora_b`); `lora_effective` is the forward-ready
+# tree with every target replaced by `w + scale * a @ b` (the factors stay
+# in the tree, so the structure — and the ravel plan — is unchanged and
+# gradients reach the factors through the merged weight); `merge_lora`
+# folds the product into the base and zeros `b`, the periodic server-side
+# merge.
+
+LORA_A_SUFFIX = ".lora_a"
+LORA_B_SUFFIX = ".lora_b"
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    """Low-rank adapter spec.
+
+    ``targets`` are exact leaf-key names (``("w",)`` for the FL models'
+    dense layers, ``("wq", "wv")`` for zoo attention blocks); a target
+    leaf must be a 2-D ``(n_in, n_out)`` matrix or a stacked 3-D
+    ``(n_layers, n_in, n_out)`` batch of them.  ``merge_every`` is
+    advisory metadata for the server-side merge hook (0 = never)."""
+
+    rank: int = 8
+    alpha: float = 16.0
+    targets: Tuple[str, ...] = ("w",)
+    merge_every: int = 0
+
+    def __post_init__(self) -> None:
+        if self.rank < 1:
+            raise ValueError("LoRA rank must be >= 1")
+        if not self.targets:
+            raise ValueError("LoRA needs at least one target leaf key")
+
+    @property
+    def scale(self) -> float:
+        return float(self.alpha) / float(self.rank)
+
+
+def _is_lora_target(key: str, leaf: Any, cfg: LoRAConfig) -> bool:
+    return (key in cfg.targets and isinstance(leaf, torch.Tensor)
+            and leaf.dim() in (2, 3) and leaf.is_floating_point())
+
+
+def inject_lora(params: Any, gen: torch.Generator, cfg: LoRAConfig = LoRAConfig()) -> Any:
+    """Add ``<key>.lora_a`` / ``<key>.lora_b`` siblings for each target.
+
+    ``a`` is Gaussian (0.01 std, drawn from ``gen``), ``b`` zeros — the
+    standard init that leaves the injected model's forward equal to the
+    base's until training moves ``b``.  Factors are fp32 whatever the
+    base dtype, on the base leaf's device.  Raises if no leaf matched (a
+    typo'd target would otherwise silently train the empty set).  The
+    same seed does not give the reference's ``a``: tests carry it over."""
+    n_injected = 0
+
+    def walk(node: Any) -> Any:
+        nonlocal n_injected
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            out[k] = walk(v)
+            if _is_lora_target(k, v, cfg):
+                *batch, n_in, n_out = v.shape
+                a = torch.randn((*batch, n_in, cfg.rank), generator=gen,
+                                device=gen.device, dtype=torch.float32) * 0.01
+                out[f"{k}{LORA_A_SUFFIX}"] = a.to(v.device)
+                out[f"{k}{LORA_B_SUFFIX}"] = torch.zeros((*batch, cfg.rank, n_out),
+                                                         dtype=torch.float32, device=v.device)
+                n_injected += 1
+        return out
+
+    injected = walk(params)
+    if n_injected == 0:
+        raise ValueError(f"no leaf matched LoRA targets {cfg.targets!r}; nothing injected")
+    return injected
+
+
+def _with_adapters(params: Any, cfg: LoRAConfig, zero_b: bool) -> Any:
+    """Each target with factors replaced by ``w + scale * a @ b`` (in fp32,
+    cast back to w's dtype); with ``zero_b`` each ``b`` becomes zeros."""
+
+    def walk(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            a = node.get(f"{k}{LORA_A_SUFFIX}")
+            b = node.get(f"{k}{LORA_B_SUFFIX}")
+            if a is not None and b is not None and not k.endswith((LORA_A_SUFFIX, LORA_B_SUFFIX)):
+                delta = cfg.scale * torch.matmul(a.float(), b.float())
+                out[k] = (v.float() + delta).to(v.dtype)
+            elif zero_b and k.endswith(LORA_B_SUFFIX):
+                out[k] = torch.zeros_like(v)
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(params)
+
+
+def lora_effective(params: Any, cfg: LoRAConfig = LoRAConfig()) -> Any:
+    """The forward-ready tree: targets replaced by ``w + scale * a @ b``.
+
+    Differentiable: training takes gradients of ``loss(lora_effective(p))``
+    with respect to the factors; with a masked optimizer
+    (:func:`repro_torch.optim.masked`) only the factor leaves move.  The
+    factors stay in the returned tree (forwards ignore them), so the
+    structure matches the injected tree exactly."""
+    return _with_adapters(params, cfg, zero_b=False)
+
+
+def merge_lora(params: Any, cfg: LoRAConfig = LoRAConfig()) -> Any:
+    """Fold each adapter product into its base weight and zero ``b``: the
+    effective weights are unchanged (``a @ 0 = 0``) and the adapters
+    restart from a clean slate — the periodic server-side merge (see
+    :func:`lora_merge_hook`)."""
+    return _with_adapters(params, cfg, zero_b=True)
+
+
+def lora_adapter_schema() -> Any:
+    """The adapter-FL update schema: one group over the ``.lora_`` leaves.
+
+    ``AsyncFLServer(schema=...)`` then folds and ships ONLY the adapters
+    group; the base stays server-side."""
+    from ..federated.agg_engine import UpdateSchema
+
+    return UpdateSchema({"adapters": ".lora_"})
+
+
+def lora_merge_hook(cfg: LoRAConfig, every: Optional[int] = None):
+    """A ``post_round_hook`` that merges adapters every N rounds.
+
+    ``every`` defaults to ``cfg.merge_every``; a hook built with
+    ``every=0`` never merges (returns None every round)."""
+    n = cfg.merge_every if every is None else int(every)
+
+    def hook(round_idx: int, params: Any) -> Any:
+        if n > 0 and round_idx % n == 0:
+            return merge_lora(params, cfg)
+        return None
+
+    return hook

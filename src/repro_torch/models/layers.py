@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -310,10 +310,15 @@ def scan_layers(body, init, xs, cfg: ModelConfig):
     queue 1, item 14), so like the reference without a mesh this is the
     plain scan.  ``cfg`` is kept for that signature."""
     del cfg
-    n = tree_leaves(xs)[0].shape[0]
+    leaves, treedef = tree_flatten(xs)
+    # One unbind a leaf, not an index a layer: the backward of ``a[i]`` is
+    # a zero tensor of the whole stack with one slice filled, so n layers
+    # would add n stack-sized gradients; unbind's backward stacks the n
+    # slices once.  The slices are views (decode writes caches in place).
+    slices = [leaf.unbind(0) for leaf in leaves]
     carry, ys = init, []
-    for i in range(n):
-        carry, y = body(carry, tree_map(lambda a: a[i], xs))
+    for i in range(len(slices[0])):
+        carry, y = body(carry, tree_unflatten(treedef, [s[i] for s in slices]))
         ys.append(y)
     if all(y is None for y in ys):
         return carry, None

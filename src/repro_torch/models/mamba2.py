@@ -54,6 +54,17 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
 # SSD chunked scan (prefill) — the plain version of the kernel
 # ---------------------------------------------------------------------------
 
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of fp32 decay exponents, evaluated in fp64 and rounded once
+    to fp32.  torch's fp32 ``exp`` on the CPU was seen, on the first call
+    in a process after other tests, to return one worker thread's share
+    of an 8192-element tensor with up to 1.5e-4 relative error (its inputs
+    bit-equal, a second call exact): 2e-3 in y, beyond the 2e-5 parity
+    tolerance.  The fp64 path is another kernel, and any error it has is
+    below fp32's rounding."""
+    return torch.exp(x.double()).to(x.dtype)
+
+
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """a: (..., Q) -> (..., Q, Q) with out[i, j] = sum_{k=j+1..i} a[k] for
     i >= j, -inf above the diagonal."""
@@ -90,16 +101,16 @@ def ssd_chunked(
     xdt = xc * dtc[..., None]                                 # x * dt
 
     # Intra-chunk (diagonal) output.
-    Lmat = torch.exp(_segsum(a.permute(0, 1, 3, 2)))          # (B, C, H, Q, Q)
+    Lmat = _exp(_segsum(a.permute(0, 1, 3, 2)))               # (B, C, H, Q, Q)
     scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)          # (B, C, Q, Q)
     y_diag = torch.einsum("bchls,bcls,bcshp->bclhp", Lmat, scores, xdt)
 
     # Chunk-final states.
-    decay_states = torch.exp(a_cumsum[:, :, -1:, :] - a_cumsum)  # (B, C, Q, H)
+    decay_states = _exp(a_cumsum[:, :, -1:, :] - a_cumsum)    # (B, C, Q, H)
     states = torch.einsum("bcsn,bcshp,bcsh->bchpn", Bc, xdt, decay_states)
 
     # Inter-chunk recurrence (a loop over chunks).
-    chunk_decay = torch.exp(a_cumsum[:, :, -1, :])            # (B, C, H)
+    chunk_decay = _exp(a_cumsum[:, :, -1, :])                 # (B, C, H)
     h = (initial_state.float() if initial_state is not None
          else torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device))
     h_prevs = []
@@ -109,7 +120,7 @@ def ssd_chunked(
     h_prev = torch.stack(h_prevs, dim=1)                      # (B, C, H, P, N)
 
     # Inter-chunk (off-diagonal) output: contribution of the carried state.
-    state_decay = torch.exp(a_cumsum)                         # (B, C, Q, H)
+    state_decay = _exp(a_cumsum)                              # (B, C, Q, H)
     y_off = torch.einsum("bcln,bchpn,bclh->bclhp", Cc, h_prev, state_decay)
 
     y = (y_diag + y_off).reshape(Bsz, L, H, P)

@@ -3,10 +3,13 @@ port of ``repro/models/transformer.py``.
 
 Layers are homogeneous and stacked on a leading axis; :func:`scan_layers`
 walks them.  KV caches are stacked per layer: (L, B, S_max, KV, HD).
-The prefill's attention is :func:`repro_torch.kernels.ops.flash_attention`
-(the hand-written kernel on a CUDA tensor, ``causal_attention`` on a CPU
-tensor); decode attends to the cache with the plain ``decode_attention``,
-as the reference does.
+The prefill's and the loss's attention is
+:func:`repro_torch.kernels.ops.flash_attention` (the hand-written kernel
+on a CUDA tensor, with its backward kernel when a gradient is needed;
+``causal_attention`` on a CPU tensor); decode attends to the cache with
+the plain ``decode_attention``, as the reference does.  ``lm_loss`` is
+differentiable; ``grad_dtype_guard`` keeps the backward's residual
+stream in the activations' dtype, as the reference's does.
 
 The MoE family (``moe.py``, including MoE archs' ``first_k_dense``
 layers) comes with ``ROADMAP.md`` queue 1, item 15's remainder.
@@ -222,7 +225,8 @@ def lm_decode_step(
 
 
 # ---------------------------------------------------------------------------
-# Loss (forward only: the kernels have no backward yet)
+# Loss (differentiable: on a card the attention's gradient is the
+# flash_attention backward kernel)
 # ---------------------------------------------------------------------------
 
 def lm_loss(

@@ -10,16 +10,21 @@ the decay outside the Adam step, which is another rule.
 leaves its inputs untouched, as the reference's pure functions do.  The
 FL server hands the same global tree to every client, so an in-place
 step would start the second client from the first one's weights.
+
+:class:`MaskedOptimizer` (``masked``) freezes every leaf its selector
+does not match, with the reference's result; it keeps no state and reads
+no gradient for a frozen leaf, and :meth:`MaskedOptimizer.trainable_mask`
+tells a caller which gradients it needs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.tree import tree_flatten, tree_map, tree_unflatten
+from ..utils.tree import keystr, tree_flatten, tree_flatten_with_path, tree_map, tree_unflatten
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -117,3 +122,78 @@ def make_optimizer(name: str, learning_rate: float, state_dtype: str = "float32"
     if name == "sgdm":
         return SGDMomentum(learning_rate=learning_rate, state_dtype=state_dtype, **kw)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskedOptimizer:
+    """Freeze every leaf the selector does not match.
+
+    Wraps an optimizer with the AdamW/SGDM ``init``/``update`` shape that
+    updates each leaf on its own (AdamW and SGDMomentum do).  The rule is
+    the reference's: a masked-out leaf comes back verbatim, a trainable
+    leaf takes the inner update.  The adapter-FL use:
+    ``masked(AdamW(...), ".lora_")`` trains only injected LoRA factors.
+
+    ``trainable`` is a substring matched against each leaf's path in the
+    reference's ``jax.tree_util.keystr`` form (``"['fc0']['w.lora_a']"``,
+    see :func:`~repro_torch.utils.tree.keystr`) or a callable
+    ``path_str -> bool``.
+
+    Unlike the reference, which runs the inner optimizer over every leaf
+    with zero gradients for the frozen ones and then throws their update
+    away, the inner optimizer here sees only the trainable leaves: its
+    state holds nothing for a frozen leaf, and a gradient tree may hold
+    ``None`` for one (it is never read).  The parameters that come back
+    are the same; for a frozen 1.2 B-parameter base under rank-2 adapters
+    this saves ~9.4 GB of fp32 AdamW state and a pass over the base a
+    step.
+    """
+
+    inner: Any
+    trainable: Any
+
+    def trainable_mask(self, params: Any) -> Any:
+        """A tree of bools, True where the leaf trains."""
+        sel = self.trainable
+        if callable(sel):
+            match = sel
+        else:
+            needle = str(sel)
+            match = lambda path: needle in path  # noqa: E731
+        pairs, treedef = tree_flatten_with_path(params)
+        return tree_unflatten(treedef, [bool(match(keystr(path))) for path, _ in pairs])
+
+    def _trained(self, params: Any) -> List[int]:
+        return [i for i, m in enumerate(tree_flatten(self.trainable_mask(params))[0]) if m]
+
+    def init(self, params: Any) -> Any:
+        leaves = tree_flatten(params)[0]
+        return self.inner.init([leaves[i] for i in self._trained(params)])
+
+    def update(self, grads: Any, state: Any, params: Any) -> Tuple[Any, Any]:
+        p_leaves, treedef = tree_flatten(params)
+        g_leaves = _grad_leaves(grads)
+        if len(g_leaves) != len(p_leaves):
+            raise ValueError(f"{len(g_leaves)} gradients for {len(p_leaves)} parameters")
+        idx = self._trained(params)
+        new_sub, new_state = self.inner.update(
+            [g_leaves[i] for i in idx], state, [p_leaves[i] for i in idx])
+        out = list(p_leaves)
+        for i, leaf in zip(idx, new_sub):
+            out[i] = leaf
+        return tree_unflatten(treedef, out), new_state
+
+
+def _grad_leaves(grads: Any) -> List[Any]:
+    """The leaves of a gradient tree in ``tree_flatten`` order, ``None``
+    kept in place (``tree_flatten`` would read it as an empty subtree)."""
+    if isinstance(grads, dict):
+        return [leaf for k in sorted(grads) for leaf in _grad_leaves(grads[k])]
+    if isinstance(grads, (list, tuple)) and not hasattr(grads, "_fields"):
+        return [leaf for g in grads for leaf in _grad_leaves(g)]
+    return [grads]
+
+
+def masked(inner: Any, trainable: Any) -> MaskedOptimizer:
+    """``MaskedOptimizer`` shorthand: ``masked(AdamW(...), ".lora_")``."""
+    return MaskedOptimizer(inner=inner, trainable=trainable)

@@ -140,3 +140,9 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
 def path_str(path: Path) -> str:
     """``"a/0/w"`` — the checkpoint blob's key for a leaf."""
     return "/".join(str(p) for p in path)
+
+
+def keystr(path: Path) -> str:
+    """``"['a'][0]['w']"`` — the reference's ``jax.tree_util.keystr`` of a
+    leaf's path (schemas and masked optimizers match against it)."""
+    return "".join(f"[{p!r}]" for p in path)

@@ -449,10 +449,11 @@ def test_async_server_with_revocations_matches_reference():
 
 
 def test_later_items_still_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ta.AsyncRoundEngine(schema={"a": "leaf0"})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AggregationEngine().streaming(base={"w": torch.zeros(2)}, schema={"a": "w"})
+    # Structured updates (item 11) are ported; their partial sums belong to
+    # the hierarchy (item 13) like the dense ones.
+    sagg = AggregationEngine().streaming(base={"w": torch.zeros(2)}, schema={"a": "w"})
+    with pytest.raises(NotImplementedError, match="item 13"):
+        sagg.export_partial()
     agg = StreamingAggregator(base={"w": torch.zeros(2)})
     with pytest.raises(NotImplementedError, match="item 13"):
         agg.export_partial()
@@ -642,5 +643,8 @@ def test_async_server_prefers_the_client_owned_compressor():
     server.run(1)
     assert clients[0].compressor._residual is not None
     assert list(server._compressors) == ["c1"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ta.AsyncFLServer(clients, tres[0].params, schema={"a": "leaf0"}, device="cpu")
+    # With a schema as well, each client gets a structured encoder of its own.
+    sserver = ta.AsyncFLServer(clients, tres[0].params, schema={"a": "leaf0"},
+                               compression="int8", fold_cost_s=0.1, device="cpu")
+    sserver.run(1)
+    assert sorted(sserver._struct_encoders) == ["c0", "c1"]

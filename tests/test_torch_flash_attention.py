@@ -19,7 +19,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    attention_lse_plain,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -243,12 +249,173 @@ def test_kernel_misaligned_base_on_card():
 
 @pytest.mark.gpu
 def test_kernel_refuses_grad_on_card():
-    """No backward exists: a CUDA input that needs a gradient raises rather
-    than returning an output with wrong gradients."""
+    """A CUDA input that needs a gradient gets the hand-written backward
+    (one forward and one backward launch) or an error, never autograd
+    through the plain version: a head width the kernels are not built for
+    is refused before anything runs."""
     _card()
     q, k, v = _torch(_qkv(1, 64, 2, 2, 64, seed=9), "float32", "cuda")
     q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention(q, k, v)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    flash_attention(q, k, v).sum().backward()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    q96, k96, v96 = _torch(_qkv(1, 64, 2, 2, 96, seed=9), "float32", "cuda")
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention(q96.requires_grad_(True), k96, v96)
     with torch.no_grad():
         flash_attention(q, k, v)
+
+
+
+# ---------------------------------------------------------------------------
+# The gradient: autograd through the plain version against jax.grad of the
+# reference's attention, and the closed form against autograd
+# ---------------------------------------------------------------------------
+
+_BWD_CASES = [
+    # (B, S, H, KV, D, causal, window)
+    (1, 64, 4, 4, 16, True, None),     # MHA
+    (2, 48, 8, 2, 16, True, None),     # GQA 4:1
+    (1, 40, 4, 1, 32, True, None),     # MQA
+    (1, 64, 4, 2, 16, True, 9),        # sliding window
+    (2, 37, 4, 2, 16, True, None),     # ragged S
+    (1, 1, 2, 2, 16, True, None),      # one position
+    (2, 33, 4, 2, 16, False, None),    # full attention, ragged S
+]
+
+
+def _jax_attention(causal, window):
+    from repro.models.layers import causal_attention, full_attention
+
+    if causal:
+        return lambda q, k, v: causal_attention(q, k, v, sliding_window=window)
+    return full_attention
+
+
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_autograd_of_plain_matches_jax_grad(case):
+    """fp32: the port's CPU gradient (autograd through
+    ``flash_attention_plain``) against ``jax.grad`` of the reference's
+    ``causal_attention`` / ``full_attention``, within 2e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    B, S, H, KV, D, causal, window = case
+    q, k, v = _qkv(B, S, H, KV, D, seed=S + H + D)
+    dout = np.random.default_rng(1).standard_normal((B, S, H, D)).astype(np.float32)
+    fn = _jax_attention(causal, window)
+    jg = jax.grad(lambda q, k, v: jnp.sum(fn(q, k, v) * dout), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (t.requires_grad_(True) for t in _torch((q, k, v), "float32"))
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    out.backward(torch.from_numpy(dout))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        _close(got, np.asarray(want), "float32")
+
+
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_bwd_plain_matches_autograd(case):
+    """The backward kernel's plain version (P from the log-sum-exp, dS = P
+    (dP - Delta)) against autograd of the forward, fp32 within 2e-5; the
+    log-sum-exp against torch.logsumexp of the masked scores."""
+    B, S, H, KV, D, causal, window = case
+    q, k, v = _torch(_qkv(B, S, H, KV, D, seed=S + H + D + 1), "float32")
+    dout = torch.from_numpy(np.random.default_rng(2).standard_normal((B, S, H, D))
+                            .astype(np.float32))
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    out.backward(dout)
+    lse = attention_lse_plain(q, k, causal=causal, window=window)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    got = flash_attention_bwd(q, k, v, out.detach(), lse, dout, causal=causal, window=window)
+    for g, want in zip(got, (tq.grad, tk.grad, tv.grad)):
+        assert g.dtype == torch.float32 and g.shape == want.shape
+        _close(g, want.numpy(), "float32")
+    assert flash_attention_bwd_plain(q, k, v, out.detach(), lse, dout, causal, window)[0] \
+        .shape == q.shape
+
+
+def test_bwd_rejects_mismatched_saved_tensors():
+    q, k, v = _torch(_qkv(1, 16, 2, 2, 16, seed=0), "float32")
+    lse = attention_lse_plain(q, k)
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention_bwd(q, k, v, q, lse[:, :, :8], q)
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention_bwd(q, k, v, q[:, :8], lse, q)
+
+
+def test_cpu_backward_launches_no_kernel():
+    q, k, v = (t.requires_grad_(True) for t in _torch(_qkv(1, 32, 2, 2, 16, seed=3), "float32"))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    flash_attention(q, k, v).sum().backward()
+    flash_attention_bwd(q.detach(), k.detach(), v.detach(), q.detach(),
+                        attention_lse_plain(q.detach(), k.detach()), q.detach())
+    assert (flash_attention.launches, flash_attention_bwd.launches) == before
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (B, S, H, KV, D, causal, window)
+    (2, 256, 4, 4, 64, True, None),
+    (1, 512, 32, 8, 128, True, None),     # GQA 4:1
+    (1, 1000, 8, 2, 128, True, 200),      # a window across tiles
+    (2, 300, 4, 4, 128, False, None),     # full attention, ragged S
+    (1, 1000, 4, 1, 64, True, None),      # ragged S, MQA
+    (2, 130, 4, 2, 128, True, None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernel_matches_plain_on_card(case, dtype):
+    """Card only: the backward kernel against its plain version computed in
+    fp32 from the same inputs (one launch).  bf16: relative L2 <= 1e-2 per
+    gradient; fp32: within 2e-5 of each gradient's max |.|; the forward's
+    log-sum-exp within 2e-5 of the plain one's scale."""
+    _card()
+    B, S, H, KV, D, causal, window = case
+    q, k, v = _torch(_qkv(B, S, H, KV, D, seed=S + H + D), dtype, "cuda")
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                       device="cuda").to(q.dtype)
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    before = flash_attention_bwd.launches
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    lse = attention_lse_plain(q.float(), k.float(), causal, window)
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.detach().float(), lse,
+                                     dout.float(), causal, window)
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert got.dtype == q.dtype and got.shape == w.shape
+        if dtype == "bfloat16":
+            assert _rel_l2(got, w) <= 1e-2
+        else:
+            assert (got - w).abs().max().item() <= 2e-5 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_bwd_kernel_one_position_and_misaligned_on_card():
+    """S = 1 (dq and dk are 0 in exact arithmetic: one key, P = 1) and a
+    bf16 q whose base is 2 bytes past 16 (the wrapper copies it)."""
+    _card()
+    q, k, v = _torch(_qkv(1, 1, 4, 2, 128, seed=1), "bfloat16", "cuda")
+    lse = attention_lse_plain(q, k)
+    o = flash_attention(q, k, v)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q))
+    scale = dv.float().abs().max().item()
+    assert dq.float().abs().max().item() <= 1e-2 * scale
+    assert dk.float().abs().max().item() <= 1e-2 * scale
+    B, S, H, D = 1, 200, 4, 128
+    buf = torch.randn(B * S * H * D + 1, device="cuda").bfloat16()
+    qm = buf[1:].view(B, S, H, D)
+    assert qm.data_ptr() % 16 != 0
+    k2, v2 = (torch.randn(B, S, H, D, device="cuda").bfloat16() for _ in range(2))
+    lse2 = attention_lse_plain(qm, k2)
+    o2 = flash_attention(qm, k2, v2)
+    got = flash_attention_bwd(qm, k2, v2, o2, lse2, o2)
+    want = flash_attention_bwd(qm.clone(), k2, v2, o2, lse2, o2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

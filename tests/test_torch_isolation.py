@@ -83,3 +83,22 @@ def test_entry_points_default_to_the_card():
                fl_models.init_vgg16, fl_models.init_shakespeare_lstm,
                convert.params_from_numpy, convert.tensor_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.train", "repro_torch.launch.steps", "repro_torch.optim.optimizers",
+    "repro_torch.models.fl_models", "repro_torch.federated.agg_engine",
+    "repro_torch.federated.compression", "repro_torch.federated.messages",
+    "repro_torch.kernels.flash_attention",
+])
+def test_the_training_slice_modules_are_scanned(module):
+    assert module in _modules()
+
+
+def test_trainer_and_server_default_to_the_card():
+    import inspect
+
+    from repro_torch.launch import serve, train
+
+    for mod in (train, serve):
+        assert 'ap.add_argument("--device", default="cuda"' in inspect.getsource(mod.main)

@@ -81,6 +81,27 @@ def test_plain_matches_pallas(L, H, P, N, chunk):
     _close(h_got, h_want)
 
 
+def test_plain_scan_does_not_depend_on_fp32_exp_accuracy(monkeypatch):
+    """Pins the cause of ``test_plain_matches_pallas[64-4-16-32-16]``'s
+    flakiness: on a first call in a process after other tests, torch's
+    fp32 ``exp`` returned one worker thread's share of the 8192 decay
+    weights exp(segsum) with up to 1.5e-4 relative error (segsum itself
+    bit-equal), moving y by up to 5e-3 against a tolerance of 1.3e-3.
+    The plain scan now evaluates its decays in fp64, so an fp32 ``exp``
+    that errs by that much leaves its output bit for bit unchanged."""
+    arrs = _inputs(2, 64, 4, 16, 32, seed=68)
+    y_want, h_want = ops.ssd_scan(*_torch(arrs), chunk=16)
+    real_exp = torch.exp
+
+    def lossy_fp32_exp(x, *args, **kwargs):
+        out = real_exp(x, *args, **kwargs)
+        return out * (1 + 1.5e-4) if x.dtype == torch.float32 else out
+
+    monkeypatch.setattr(torch, "exp", lossy_fp32_exp)
+    y_got, h_got = ops.ssd_scan(*_torch(arrs), chunk=16)
+    assert torch.equal(y_got, y_want) and torch.equal(h_got, h_want)
+
+
 def test_plain_matches_sequential_semantics():
     """Chunked == exact O(L) recurrence, in both packages' oracles."""
     from repro.kernels import ref as jax_ref
