@@ -10,9 +10,10 @@ or of the JAX package.  In order it:
      off for matmuls and cuDNN convolutions;
   2. builds every kernel of the port's paths from ``src/repro_torch/
      kernels/csrc`` with nvcc (one process per source, all started
-     together), prints ptxas's registers and shared memory per kernel and,
-     where ``cuobjdump`` is found, the count of wgmma (HGMMA), TMA load
-     (UTMALDG) and mma.sync (HMMA) instructions in each library's SASS;
+     together), prints ptxas's registers, spills and shared memory per
+     kernel (the flash backward's wgmma kernels must not spill) and, where
+     ``cuobjdump`` is found, the count of wgmma (HGMMA), TMA load (UTMALDG)
+     and mma.sync (HMMA) instructions in each library's SASS;
   3. holds each kernel against its plain PyTorch version on the card, over
      the CPU tests' sweeps and at the paths' shapes (``dequant_fold`` bit
      for bit, on aligned and misaligned payloads; ``flash_attention`` over
@@ -51,8 +52,10 @@ or of the JAX package.  In order it:
      CPU from the same weights: prefill logits and greedy tokens;
  10. trains olmo-1b at full width (bf16, (2, 2048) batches): the flash
      backward kernel held against its plain version over the forward's
-     cases (phase 3) and timed against SDPA's gradient (phase 4, with the
-     forward with and without its log-sum-exp store), five timed
+     cases and its own tile edges (phase 3; q and k of two lengths
+     refused), timed against SDPA's gradient (phase 4, with each of its
+     two kernels' device time, and the forward with and without its
+     log-sum-exp store), five timed
      ``make_train_step`` steps and one traced, each with 16 forward and 16
      backward launches, and ``repro_torch.launch.train.main`` for 8 steps
      (exit 0: the loss fell);
@@ -231,20 +234,29 @@ def phase_build():
                          "flash_attention_bwd", "ssd_scan"])
     say(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
         f"in {time.monotonic() - t0:.1f} s")
-    ptxas = []
+    ptxas, spills, entry = [], {}, ""
     for name in libs:
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 ptxas.append(f"{name}: {line.strip()}")
                 say(f"[build] {ptxas[-1]}")
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name == "flash_attention_bwd" and "wgmma" in entry:
+                spills[entry] = int(m.group(1)) + int(m.group(2))
+    say(f"[build] flash_attention_bwd wgmma kernels, spilled bytes: {spills}")
+    check(len(spills) == 4 and not any(spills.values()),
+          "the flash backward's four wgmma kernels (dK/dV and dQ at D 64 and 128) do not spill")
     return sass_counts(libs), ptxas
 
 
 def sass_counts(libs: dict) -> dict:
     """Counts of tensor-core and TMA instructions in the built libraries'
     SASS (``cuobjdump -sass``), where ``cuobjdump`` is found: the bf16
-    flash kernel must issue wgmma (HGMMA) and TMA loads (UTMALDG), the scan
-    its bf16 scores on mma.sync (HMMA)."""
+    flash kernels, forward and backward, must issue wgmma (HGMMA) and TMA
+    loads (UTMALDG), the backward no mma.sync (HMMA) at all, the scan its
+    bf16 scores on mma.sync."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -260,8 +272,9 @@ def sass_counts(libs: dict) -> dict:
     check(out["flash_attention"]["HGMMA"] > 0 and out["flash_attention"]["UTMALDG"] > 0,
           "the flash library issues wgmma and TMA loads")
     check(out["ssd_scan"]["HMMA"] > 0, "the scan library forms bf16 scores on the tensor cores")
-    check(out["flash_attention_bwd"]["HMMA"] > 0,
-          "the flash backward library runs its bf16 products on the tensor cores")
+    check(out["flash_attention_bwd"]["HGMMA"] > 0 and out["flash_attention_bwd"]["UTMALDG"] > 0
+          and out["flash_attention_bwd"]["HMMA"] == 0,
+          "the flash backward library issues wgmma and TMA loads, and no mma.sync")
     return out
 
 
@@ -1301,9 +1314,12 @@ def phase_flash_bwd_check():
     """The backward kernel against ``flash_attention_bwd_plain`` computed in
     fp32 from the same inputs (the forward kernel's output and log-sum-exp,
     the same dO): olmo-1b's shape (4, 2048, 16, 128) causal bf16 (the main
-    path's call), GQA (32 query heads on 8), D 64, a window across tiles,
-    full attention, ragged S (1000, 130 and 1), the fp32 path, and a q
-    whose base is off 16 bytes.  bf16: relative L2 <= 1e-2 per gradient;
+    path's call), GQA (32 query heads on 8, and 8:1), D 64, a window across
+    tiles and one narrower than a 64-row tile, full attention, ragged S
+    (1000, 130 and 1) and S at the bf16 kernels' tile edges (63, 64, 65,
+    127, 128, 129), the fp32 path, and a q whose base is off 16 bytes; then
+    q and k of two lengths, which the forward and the backward must refuse
+    before any launch.  bf16: relative L2 <= 1e-2 per gradient;
     fp32: within 2e-5 of each gradient's max |.|.  At S = 1, dq and dk are
     0 in exact arithmetic (one key: P = 1 and dP = Delta), so they are held
     within 1e-2 (bf16) / 2e-5 (fp32) of max|dv| instead.  The forward's
@@ -1325,6 +1341,15 @@ def phase_flash_bwd_check():
              (1, 1000, 4, 1, 64, True, None, bf),       # ragged S, MQA
              (2, 130, 4, 2, 128, True, None, bf),
              (1, 1, 4, 2, 128, True, None, bf),         # one position
+             # the bf16 kernels' tile edges: 64-row query tiles and 128-key
+             # blocks (dK / dV), 128-row query blocks and 128-key tiles (dQ)
+             (1, 63, 4, 4, 64, True, None, bf),
+             (2, 64, 8, 1, 128, True, None, bf),        # GQA 8:1
+             (1, 65, 4, 4, 128, True, None, bf),
+             (2, 127, 8, 1, 64, True, None, bf),
+             (1, 128, 4, 2, 128, True, None, bf),
+             (2, 129, 16, 2, 64, True, 16, bf),         # a window narrower than a tile
+             (1, 2048, 16, 2, 128, True, 40, bf),
              (2, 300, 8, 2, 64, True, None, f32),       # the fp32 path
              (1, 1000, 4, 2, 128, True, 100, f32),
              (2, 130, 4, 4, 128, False, None, f32),
@@ -1391,6 +1416,29 @@ def phase_flash_bwd_check():
     say(f"[check] flash_attention_bwd q based 2 bytes past 16: equal to the aligned copy's "
         f"gradients {same} {'ok' if same else 'FAIL'}")
     check(same, "flash_attention_bwd on a misaligned q")
+
+    # q of 128 positions over k and v of 256 (or 64): the kernels read one
+    # length, so every wrapper refuses it before a launch.
+    q = torch.randn((1, 128, 4, 64), generator=gen, device="cuda").to(bf)
+    lse = torch.zeros((1, 4, 128), device="cuda")
+    before = counts()
+    refused = []
+    for sk in (256, 64):
+        k, v = (torch.randn((1, sk, 4, 64), generator=gen, device="cuda").to(bf) for _ in range(2))
+        for call in (lambda: fa.flash_attention(q, k, v, causal=False),
+                     lambda: fa.flash_attention(q.clone().requires_grad_(True), k, v, causal=False),
+                     lambda: fa.flash_attention_bwd(q, k, v, q, lse, q, causal=False)):
+            try:
+                call()
+                refused.append(False)
+            except ValueError:
+                refused.append(True)
+    torch.cuda.synchronize()
+    ok = all(refused) and counts() == before
+    say(f"[check] flash_attention forward / backward with q of 128 and k of 256 or 64 positions: "
+        f"refused {sum(refused)} of {len(refused)} calls, no launch {counts() == before} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "q and k of two lengths are refused before any launch")
     return main_err
 
 
@@ -1398,12 +1446,16 @@ def phase_flash_bwd_timing():
     """The backward at olmo-1b's shape (4, 2048, 16, 128) causal bf16: the
     kernel, its plain version and the library's gradient
     (``F.scaled_dot_product_attention`` forward + backward, minus its
-    forward, each timed in the same rounds), beside its bound; then the
+    forward, each timed in the same rounds), beside its bound; the device
+    time of each of its two kernels (dQ, then dK / dV) and of SDPA's
+    gradient from five calls under ``torch.profiler`` (the timed call of
+    the kernel also counts the wrapper's host time before its first
+    launch, which SDPA's difference of two timed calls cancels); then the
     forward with and without the log-sum-exp store.
 
     The needed work is the five products S, dP, dV, dK and dQ, 2.5 times
     the forward's 2·B·H·D·S·(S+1) (causal), on the bf16 tensor cores' 989
-    TFLOP/s; pass 2's recompute of S and dP is not counted.  The bytes
+    TFLOP/s; the dQ kernel's recompute of S and dP is not counted.  The bytes
     are q, k, v, o, dO and the log-sum-exp read once and dq, dk, dv
     written once."""
     import torch
@@ -1444,6 +1496,20 @@ def phase_flash_bwd_timing():
     row["library_fwd_ms"] = q4["library_fwd"][1]
     say(f"[time] SDPA's gradient alone (forward + backward {q4['library'][1]:.4f} ms minus its "
         f"forward {q4['library_fwd'][1]:.4f} ms): {lib:.4f} ms; the kernel is {row['ms'] / lib:.2f}x it")
+    ours = _device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout))
+    lib_dev = sum(_device_ms(sdpa_fwd_bwd).values()) - sum(_device_ms(sdpa_fwd).values())
+    split = {name: sum(t for n, t in ours.items() if name in n)
+             for name in ("bwd_dq_wgmma", "bwd_dkdv_wgmma")}
+    row["device_ms_by_kernel"] = split
+    row["device_ms"], row["library_device_ms"] = sum(ours.values()), lib_dev
+    if not ours or lib_dev <= 0:
+        say("[time] flash_attention_bwd: the profiler recorded no device time")
+    else:
+        say(f"[time] flash_attention_bwd device time a call by kernel (torch.profiler, 5 calls): "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items())
+            + f"; all its kernels {sum(ours.values()):.4f} ms against the {row['ms']:.4f} ms "
+            f"timed call (the rest is the wrapper's host time before the first launch); SDPA's "
+            f"gradient on the device {lib_dev:.4f} ms, so {sum(ours.values()) / lib_dev:.2f}x it")
     fq, fn = alternating({"kernel": lambda: fa._launch(q, k, v, True, None, lse=lse),
                           "plain": lambda: fa._launch(q, k, v, True, None)})
     say(f"[time] flash_attention forward at the same shape: with the log-sum-exp stored median "
@@ -1455,6 +1521,26 @@ def phase_flash_bwd_timing():
     del q, k, v, o, dout, lse, qt, kt, vt
     torch.cuda.empty_cache()
     return row
+
+
+def _device_ms(fn, n: int = 5) -> dict:
+    """Device time (ms) a call of ``fn`` by kernel name, from ``n`` calls
+    under ``torch.profiler``: free of the host time that the event timing
+    of one call counts before its first launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return {name: t / n / 1e3 for name, t in by_name.items()}
 
 
 def _lm_batch(ds, rng, batch: int) -> dict:

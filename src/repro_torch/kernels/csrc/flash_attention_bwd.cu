@@ -17,46 +17,78 @@
 //
 // over the keys in range for each query (j <= i when causal, j > i - window
 // with a window, j < S).  dq is (B, S, H, D), dk and dv (B, S, KV, D), all
-// contiguous and in q's dtype.
+// contiguous and in q's dtype.  Queries and keys share one length S.
 //
 // What bounds it: operations.  At olmo-1b's shape (B = 4, S = 2048, H = KV =
 // 16, D = 128, bf16, causal) the five products it needs (S, dP, dV, dK, dQ)
 // are 2.5 times the forward's 68.7 GFLOP = 171.8 GFLOP: 0.1737 ms at the
-// H100's 989 TFLOP/s of bf16 tensor-core work, against about 0.2 GB of
-// inputs and outputs (0.06 ms).  Three launches, in order, on the stream:
-//   * bwd_delta: Delta = rowsum(dO * o) in fp32, one warp a row, (B, H, S).
-//   * pass 1, dK and dV: one block per (b, KV head, 64-key tile); it keeps
-//     its keys' dK and dV in registers and walks the G query heads and every
-//     query tile the mask lets reach its keys, recomputing S^T and dP^T for
-//     each.  Its outputs have one writer: no atomics, so the result is the
-//     same run to run.
-//   * pass 2, dQ: one block per (b, query head, 64-row query tile), walking
-//     the key tiles in range as the forward does (it recomputes S and dP;
-//     that recompute is not counted in the bound above).
-// bf16: 4 warps a block, each on 16 rows (keys in pass 1, queries in pass
-// 2), products on the tensor cores with mma.sync m16n8k16 and fp32
-// accumulation.  A product's accumulator fragment is the A fragment of the
-// next product (the m16n8 C layout of two neighbouring 8-column tiles is
-// the m16k16 A layout), so P and dS never leave registers; they are rounded
-// to bf16 there.  The B operands are read from shared memory as 32-bit
-// pairs along their reduction axis, so the tiles a product reads along the
-// other axis are kept twice, as loaded and transposed (q and dO in pass 1,
-// k in pass 2).  Rows are padded by 8 elements so a warp's fragment loads
-// hit distinct banks.  fp32: the same passes on the CUDA cores in fp32,
-// 32-row tiles, 256 threads; for the fp32 configs the parity runs use.
+// H100's 989 TFLOP/s of bf16 tensor-core work, against about 0.27 GB of
+// inputs and outputs (0.08 ms).  Two kernels, in order, on the stream, each
+// output with one writer and no atomics (the result is the same run to
+// run):
+//   * dQ: one block per (b, query head, 128 query rows), walking the key
+//     tiles in range as the forward does.  It recomputes S and dP -- seven
+//     products where five are needed (the recompute is not counted in the
+//     bound) -- and forms its rows' Delta = rowsum(dO * o) and lse in base 2
+//     itself, storing both for the second kernel.
+//   * dK and dV: one block per (b, KV head, 128 keys); it keeps its keys'
+//     dK and dV in registers and walks the G query heads and every query
+//     tile the mask lets reach its keys, recomputing S^T and dP^T for each.
 // Tiles wholly outside the causal or window range are skipped (per block,
-// and per warp for the 32-column halves of a tile).
-// What holds it back now (a first kernel, right before fast): tile loads
-// are synchronous (no cp.async or TMA ring), mma.sync rather than wgmma,
-// the transposed copies are written with scalar stores, and pass 2
-// recomputes S and dP.
+// and per consumer warpgroup); only tiles that cross the diagonal, the
+// window's edge or the ragged end of S are masked.
+//
+// bf16 (the models' dtype, the main path): both kernels are warp-
+// specialised wgmma kernels built from the forward's machinery
+// (flash_attention.cu).  A block is three warpgroups.  Warpgroup 0 is the
+// producer: it gives up registers (setmaxnreg) and one thread issues TMA
+// loads into 128-byte-swizzled shared memory, each ring stage guarded by
+// full / empty mbarriers.  Warpgroups 1 and 2 are the consumers, 64 rows
+// each, with 240 registers.
+//   * bwd_dq_wgmma: Q and dO are held; 128-key tiles of K and V stream
+//     through a ring of kQStages.  S = Q K^T and dP = dO V^T are wgmma
+//     m64n128k16 with both operands in shared memory, issued as two commit
+//     groups so P is formed while dP is still running; dS = P (dP - Delta)
+//     in fp32 on the accumulator, packed to bf16 in registers -- the
+//     accumulator layout of m64nN is the register A fragment of the next
+//     k16 step -- and dQ += dS K with K read through the transpose bit, as
+//     the forward reads V.
+//   * bwd_dkdv_wgmma: K and V are loaded once and held; the producer
+//     streams 64-row query tiles of Q and dO, with their rows of lse and
+//     Delta, through a ring of kKvStages.  S^T = K Q^T and dP^T = V dO^T
+//     are wgmma m64n64k16 from shared memory; P^T and dS^T are formed on
+//     the accumulator and packed to bf16 as above; dV += P^T dO is issued
+//     before dS^T is formed, so that product overlaps the elementwise
+//     work, then dK += dS^T Q (Q and dO through the transpose bit).
+//   The tensor maps are built on the host with cuTensorMapEncodeTiled,
+//   found through cudaGetDriverEntryPoint (no -lcuda).  q and dO map as
+//   (D, H, S, B), k and v as (D, KV, S, B): GQA is an index; a D = 128 row
+//   is two 64-column boxes (the swizzle's width).  lse and Delta map as
+//   rows of a (2 * B * H, round_up(S, 4)) fp32 scratch.  TMA fills rows
+//   past S with zeros; those rows and columns are masked.  A row with no
+//   key in range has lse = +inf, so P = 0.  The loop-invariant operand
+//   addresses are laundered each trip (`fresh`), or the compiler hoists
+//   their descriptors and spills.
+// fp32: bwd_delta (Delta, one warp a row), then the same two passes on the
+// CUDA cores in fp32, 32-row tiles, 256 threads; for the fp32 configs the
+// parity runs use.
+// What holds the bf16 kernels back now (no profiler counters on the card,
+// so inferred from edited copies timed on it): the dQ kernel's recompute
+// of S and dP (two of its three products); the consumers' elementwise
+// work, which the products do not fully hide (a ping-pong of the two
+// consumers on named barriers, deferring a trip's last wait into the next
+// trip, deeper rings and even skipping the tile loads gained nothing);
+// blocks are not persistent, so each block's K / V (or Q / dO) load and
+// its epilogue are not overlapped with another block's products.
 //
 // Interface: plain C, loaded with ctypes.  Returns cudaGetLastError() after
 // the launches (0 = launched), or cudaErrorInvalidValue for arguments it does
-// not take (for bf16 also bases or strides that are not multiples of 16
-// bytes: it reads 16-byte vectors).  Launches on the given stream and does
-// not synchronize; `delta` is the caller's (B, H, S) fp32 scratch.
+// not take (for bf16 also a base or a stride of q, k, v, o or dO that is
+// not a multiple of 16 bytes: TMA and the 16-byte loads of o and dO cannot
+// address it).  Launches on the given stream and does not synchronize.
+// `delta` is the caller's fp32 scratch of 2 * B * H * round_up(S, 4) floats.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,7 +105,8 @@ struct BwdArgs {
   const void* o;
   const void* dout;
   const float* lse;
-  float* delta;
+  float* delta;  // fp32: Delta (B, H, S); bf16: Delta, then lse * log2(e), rows of
+                 // round_up(S, 4) floats
   void* dq;
   void* dk;
   void* dv;
@@ -87,9 +120,6 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, const BwdArgs& a) {
   return qpos < a.S && kpos < a.S && (!a.causal || kpos <= qpos) &&
          (a.window <= 0 || kpos > qpos - a.window);
 }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // The first and one-past-last query tiles (of `tile` rows) whose queries can
 // reach keys [k0, k0 + tile).
@@ -111,10 +141,11 @@ __device__ __forceinline__ void key_tiles(const BwdArgs& a, int q0, int tile, in
 }
 
 // ---------------------------------------------------------------------------
-// Delta = rowsum(dO * o), fp32, (B, H, S): one warp a row.
+// fp32: Delta = rowsum(dO * o), (B, H, S): one warp a row.  (The bf16 dQ
+// kernel forms its rows' Delta itself.)
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(256) bwd_delta(BwdArgs a) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -123,43 +154,23 @@ __global__ void __launch_bounds__(256) bwd_delta(BwdArgs a) {
   const int64_t bs = row / a.H;
   const int s = static_cast<int>(bs % a.S);
   const int b = static_cast<int>(bs / a.S);
-  const T* orow = static_cast<const T*>(a.o) + b * a.osb + s * a.oss + h * a.osh;
-  const T* drow = static_cast<const T*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
+  const float* orow = static_cast<const float*>(a.o) + b * a.osb + s * a.oss + h * a.osh;
+  const float* drow = static_cast<const float*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f(orow[d]), to_f(drow[d]), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(orow[d], drow[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) a.delta[(static_cast<int64_t>(b) * a.H + h) * a.S + s] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, 4 warps, 64-row tiles
-// ---------------------------------------------------------------------------
-
-constexpr int kBT = 64;           // rows of a tile: keys (pass 1) or queries (pass 2)
-constexpr int kTS = kBT + 8;      // row stride of a transposed tile (elements)
-constexpr int kBfThreads = 128;
-
-template <int D>
-constexpr int dkdv_bf16_smem() {  // K, V, Q, dO as loaded; Q^T, dO^T; lse, Delta
-  return (4 * kBT * (D + 8) + 2 * D * kTS) * 2 + 2 * kBT * 4;
-}
-template <int D>
-constexpr int dq_bf16_smem() {  // Q, dO, K, V as loaded; K^T
-  return (4 * kBT * (D + 8) + D * kTS) * 2;
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// 2^x in one MUFU instruction (ex2.approx; results below 2^-126 flush to
+// 0, and -inf gives 0).  exp2f without fast-math takes several more
+// instructions, and the exponentials sit on the consumers' critical path.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -167,301 +178,653 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows r0 .. r0 + 63 of one head of a (B, S, heads, D) tensor (`base` at that
-// batch and head, `rs` the row stride) into `nat` (rows of D + 8) and, if
-// given, `tr` (D rows of kTS: column-major); rows past S are zeros.
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, one producer and two consumer warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kWsThreads = 384;  // three warpgroups
+constexpr int kBN = 128;         // a dK/dV block's keys; a dQ block's query rows and key tiles
+constexpr int kBM = 64;          // query rows of a tile the dK/dV kernel streams
+constexpr int kKvStages = 2;     // ring depth of the dK/dV kernel (Q, dO, lse, Delta)
+constexpr int kQStages = 2;      // ring depth of the dQ kernel (K, V)
+constexpr int kBox = 64;         // bf16 columns of one 128-byte swizzled box
+
+struct WsArgs {
+  const void* o;
+  const void* dout;
+  const float* lse;    // (B, H, S), natural log
+  float* scratch;      // (B, H, ldl) Delta, then (B, H, ldl) lse in base 2
+  void* dq;
+  void* dk;
+  void* dv;
+  int64_t osb, oss, osh, dsb, dss, dsh;
+  int B, S, H, KV, ldl;
+  int causal, window;
+  float scale;
+  float scale_log2;    // scale * log2(e): the exponentials run in base 2
+};
+
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* nat, __nv_bfloat16* tr,
-                                               const __nv_bfloat16* base, int64_t rs, int r0,
-                                               int S) {
-  constexpr int V = D / 8;  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < kBT * V; i += blockDim.x) {
-    const int r = i / V, c = (i % V) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(base + (r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(nat + r * (D + 8) + c) = val;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[(c + j) * kTS + r] = e[j];
-    }
+constexpr int dkdv_smem_bytes() {  // alignment slack, K and V, stages of Q, dO, lse and Delta
+  return 1024 + 2 * kBN * D * 2 + kKvStages * (2 * kBM * D * 2 + 2 * kBM * 4);
+}
+
+template <int D>
+constexpr int dq_smem_bytes() {  // alignment slack, Q and dO, stages of K and V
+  return 1024 + 2 * kBN * D * 2 + kQStages * 2 * kBN * D * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   }
 }
 
-// The A fragment (16 rows from `row0`, k16 step from column `col0`) of a
-// row-major tile with row stride `ld`.
-__device__ __forceinline__ void frag_a(uint32_t* a, const __nv_bfloat16* t, int ld, int row0,
-                                       int col0) {
-  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
-  a[0] = ld32(t + (row0 + g) * ld + col0 + 2 * q);
-  a[1] = ld32(t + (row0 + g + 8) * ld + col0 + 2 * q);
-  a[2] = ld32(t + (row0 + g) * ld + col0 + 2 * q + 8);
-  a[3] = ld32(t + (row0 + g + 8) * ld + col0 + 2 * q + 8);
+// One box of a 4-d (2-d) tensor map into shared memory; completion (the
+// box's bytes, zeros for coordinates out of range included) goes to `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// The B fragment (8 columns n0.., k16 step from k0) of a tile stored with
-// the reduction axis contiguous: element (k, n) at t[n * ld + k].
-__device__ __forceinline__ void frag_b(uint32_t* b, const __nv_bfloat16* t, int ld, int n0,
-                                       int k0) {
-  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
-  const __nv_bfloat16* p = t + (n0 + g) * ld + k0 + 2 * q;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
 }
 
-// Two neighbouring 16 x 8 accumulator tiles (32 columns = 4 tiles -> two
-// k16 steps) as bf16 A fragments.
-__device__ __forceinline__ void acc_to_a(uint32_t (*a)[4], const float (*c)[4]) {
+// A wgmma operand descriptor for a tile in 128-byte-swizzled shared memory
+// (rows of 128 bytes, 8-row groups 1024 bytes apart, 1024-aligned groups):
+// `lbo` is the byte distance between 64-column boxes, which only an
+// operand read through the transpose bit (128 columns) uses.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// A shared-memory address the compiler must treat as new on every loop
+// trip: the descriptors built from it are then formed next to their wgmma
+// (a few integer adds) instead of hoisted out of the loop, where the 32
+// registers they would hold push the accumulators into spills.
+__device__ __forceinline__ uint32_t fresh(uint32_t addr) {
+  asm volatile("" : "+r"(addr));
+  return addr;
+}
+
+// Keep the compiler from reading (or reusing) registers that an
+// asynchronous wgmma still writes or reads before the wait that ends it.
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// D (64 x N fp32, the accumulator fragment) (+)= A (64 x 16) . B (16 x N):
+// ss takes A and B from shared memory (both K-major), rs takes A from
+// registers (the m16n8k16 A-fragment layout, a warp's 16 rows each) and B
+// through the transpose bit (N contiguous in shared memory).
+__device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The rs product with N = D (the head width).
+template <int D>
+__device__ __forceinline__ void wgmma_rs_nd(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_m64n128(d, a, db);
+  } else {
+    wgmma_rs_m64n64(d, a, db);
   }
 }
 
-// Pass 1: dK and dV of one 64-key tile of one KV head.  Warp w owns keys
-// k0 + 16w .. + 15; per query tile it forms S^T and dP^T (16 keys x 32
-// queries, twice) and accumulates dV += P^T dO, dK += dS^T Q.
+// Two neighbouring 8-column groups of an accumulator (16 columns) as the
+// bf16 A fragment of one k16 step: acc[4j + 2 * half + e] is row
+// (lane / 4) + 8 * half of the warp's 16, column 8j + 2 * (lane % 4) + e.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t* a, const float* acc) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[4 * kk + 0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+    a[4 * kk + 1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+    a[4 * kk + 2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+    a[4 * kk + 3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
+}
+
+// The accumulator fragment (rows r0 and r0 + 8, D columns) times `mul`, in
+// bf16, into row-major rows of `ld` elements; rows >= S are not stored.
 template <int D>
-__global__ void __launch_bounds__(kBfThreads) bwd_dkdv_bf16(BwdArgs a) {
-  constexpr int NS = D + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* Vs = Ks + kBT * NS;
-  __nv_bfloat16* Qs = Vs + kBT * NS;
-  __nv_bfloat16* Os = Qs + kBT * NS;  // dO
-  __nv_bfloat16* QT = Os + kBT * NS;
-  __nv_bfloat16* OT = QT + D * kTS;
-  float* lse_s = reinterpret_cast<float*>(OT + D * kTS);  // base 2
-  float* dl_s = lse_s + kBT;
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t ld, const float* acc,
+                                           int r0, int S, float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= S) continue;
+    __nv_bfloat16* p = base + static_cast<int64_t>(row) * ld + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+  }
+}
+
+// dK and dV of 128 keys of one KV head: consumer c owns keys
+// k0 + 64c .. + 63 and walks every (query head, 64-row query tile) the mask
+// lets reach the block's keys.
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tld, WsArgs a) {
+  constexpr int kBoxes = D / kBox;   // 64-column boxes a row
+  constexpr int kKTile = kBN * D * 2;  // bytes of the K or V tile
+  constexpr int kKBox = kBN * 128;     // bytes of one of its boxes
+  constexpr int kQTile = kBM * D * 2;  // bytes of a Q or dO tile
+  constexpr int kQBox = kBM * 128;
+  constexpr int kNT = kBM / 8;         // 8-query column groups of the S^T fragment
+
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kKvStages];
+  uint64_t* kv_full = &bars[0];
+  uint64_t* full = &bars[1];
+  uint64_t* empty = &bars[1 + kKvStages];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // swizzle atoms: 1024-aligned
+  uint8_t* Vs = Ks + kKTile;
+  uint8_t* Qs = Vs + kKTile;
+  uint8_t* Os = Qs + kKvStages * kQTile;                      // dO
+  float* Ls = reinterpret_cast<float*>(Os + kKvStages * kQTile);  // a stage: lse (base 2), Delta
 
   const int b = blockIdx.x / a.KV;
   const int g = blockIdx.x % a.KV;
   const int G = a.H / a.KV;
-  const int k0 = blockIdx.y * kBT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int kw = 16 * warp;
-  const float scale_log2 = a.scale * kLog2e;
+  const int S = a.S;
+  const int k0 = blockIdx.y * kBN;
+  // The 64-row query tiles whose queries reach keys [k0, k0 + kBN).
+  const int qt_first = a.causal ? k0 / kBM : 0;
+  int qt_end = (S + kBM - 1) / kBM;
+  if (a.window > 0) qt_end = min(qt_end, (k0 + kBN - 2 + a.window) / kBM + 1);
 
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.ksb + g * a.ksh;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + b * a.vsb + g * a.vsh;
-  load_tile_bf16<D>(Ks, nullptr, kb, a.kss, k0, a.S);
-  load_tile_bf16<D>(Vs, nullptr, vb, a.vss, k0, a.S);
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  int qt_first, qt_end;
-  query_tiles(a, k0, kBT, &qt_first, &qt_end);
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = g * G + hh;
-    const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.qsb + h * a.qsh;
-    const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(a.dout) + b * a.dsb + h * a.dsh;
-    const float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.S;
-    const float* drow = a.delta + (static_cast<int64_t>(b) * a.H + h) * a.S;
-    for (int qt = qt_first; qt < qt_end; ++qt) {
-      const int q0 = qt * kBT;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile_bf16<D>(Qs, QT, qb, a.qss, q0, a.S);
-      load_tile_bf16<D>(Os, OT, ob, a.dss, q0, a.S);
-      for (int i = threadIdx.x; i < kBT; i += blockDim.x) {
-        const bool in = q0 + i < a.S;
-        lse_s[i] = in ? lrow[q0 + i] * kLog2e : 0.f;
-        dl_s[i] = in ? drow[q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll 1
-      for (int cq = 0; cq < kBT; cq += 32) {
-        const int qlo = q0 + cq, qhi = q0 + cq + 31;
-        const int klo = k0 + kw, khi = k0 + kw + 15;
-        if (qlo >= a.S || (a.causal && qhi < klo) || (a.window > 0 && qlo - a.window >= khi))
-          continue;  // no pair of this warp's keys and these queries is in range
-        float st[4][4], dp[4][4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          uint32_t ak[4], av[4];
-          frag_a(ak, Ks, NS, kw, 16 * ks);
-          frag_a(av, Vs, NS, kw, 16 * ks);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            uint32_t bq[2], bo[2];
-            frag_b(bq, Qs, NS, cq + 8 * n, 16 * ks);
-            frag_b(bo, Os, NS, cq + 8 * n, 16 * ks);
-            mma_bf16(st[n], ak, bq);
-            mma_bf16(dp[n], av, bo);
-          }
-        }
-        // st[n][e] is key kw + gr + 8 (e >> 1), query cq + 8n + 2t + (e & 1).
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kl = kw + gr + 8 * (e >> 1);
-            const int ql = cq + 8 * n + 2 * t + (e & 1);
-            float p = 0.f;
-            if (allowed(q0 + ql, k0 + kl, a)) p = exp2f(fmaf(st[n][e], scale_log2, -lse_s[ql]));
-            st[n][e] = p;
-            dp[n][e] = p * (dp[n][e] - dl_s[ql]);
-          }
-        uint32_t pa[2][4], da[2][4];
-        acc_to_a(pa, st);
-        acc_to_a(da, dp);
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-          for (int n = 0; n < ND; ++n) {
-            uint32_t bo[2], bq[2];
-            frag_b(bo, OT, kTS, 8 * n, cq + 16 * kk);
-            frag_b(bq, QT, kTS, 8 * n, cq + 16 * kk);
-            mma_bf16(dv[n], pa[kk], bo);
-            mma_bf16(dk[n], da[kk], bq);
-          }
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kKvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread releases the stage
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(a.dk);
-  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(a.dv);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = k0 + kw + gr + 8 * half;
-    if (key >= a.S) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * a.S + key) * a.KV + g) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(dkb + off + 8 * n) =
-          pack_bf16(dk[n][2 * half] * a.scale, dk[n][2 * half + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvb + off + 8 * n) =
-          pack_bf16(dv[n][2 * half], dv[n][2 * half + 1]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * kKTile);
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load_4d(Ks + x * kKBox, &tk, kv_full, x * kBox, g, k0, b);
+        tma_load_4d(Vs + x * kKBox, &tv, kv_full, x * kBox, g, k0, b);
+      }
+      int i = 0;
+      for (int h = g * G; h < (g + 1) * G; ++h) {
+        for (int qt = qt_first; qt < qt_end; ++qt, ++i) {
+          const int st = i % kKvStages;
+          mbar_wait(&empty[st], ((i / kKvStages) & 1) ^ 1);  // passes at once on the first round
+          mbar_expect_tx(&full[st], 2 * kQTile + 2 * kBM * 4);
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load_4d(Qs + st * kQTile + x * kQBox, &tq, &full[st], x * kBox, h, qt * kBM, b);
+            tma_load_4d(Os + st * kQTile + x * kQBox, &tdo, &full[st], x * kBox, h, qt * kBM, b);
+          }
+          const int row = b * a.H + h;  // of the (2 B H, S) lse / Delta map
+          tma_load_2d(Ls + st * 2 * kBM, &tld, &full[st], qt * kBM, a.B * a.H + row);
+          tma_load_2d(Ls + st * 2 * kBM + kBM, &tld, &full[st], qt * kBM, row);
+        }
+      }
     }
+  } else {
+    // ---- consumers: 64 keys each --------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int t = lane & 3;                            // thread in its quad
+    const int key_lo = k0 + 64 * c;                    // this warpgroup's keys
+    const int r0 = key_lo + 16 * warp + (lane >> 2);   // this thread's keys: r0 and r0 + 8
+    const uint32_t k_base = smem_addr(Ks) + c * 64 * 128;
+    const uint32_t v_base = smem_addr(Vs) + c * 64 * 128;
+    // The queries each of this thread's keys may see: [q_min, q_max].
+    int q_min[2], q_max[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = r0 + 8 * half;
+      q_min[half] = a.causal ? key : 0;
+      q_max[half] = key >= S ? -1 : a.window > 0 ? min(S - 1, key + min(a.window, S) - 1) : S - 1;
+    }
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    int i = 0;
+    for (int h = g * G; h < (g + 1) * G; ++h) {
+      for (int qt = qt_first; qt < qt_end; ++qt, ++i) {
+        const int st = i % kKvStages;
+        const int q0 = qt * kBM;
+        mbar_wait(&full[st], (i / kKvStages) & 1);
+        if (key_lo >= S || (a.causal && q0 + kBM - 1 < key_lo) ||
+            (a.window > 0 && q0 - a.window >= key_lo + 63)) {
+          mbar_arrive(&empty[st]);  // no pair of these keys and queries is in range
+          continue;
+        }
+        const uint32_t q_addr = fresh(smem_addr(Qs) + st * kQTile);
+        const uint32_t o_addr = fresh(smem_addr(Os) + st * kQTile);
+        const uint32_t k_addr = fresh(k_base), v_addr = fresh(v_base);
+
+        // S^T = K Q^T, then dP^T = V dO^T, as two groups: D/16 steps of k16,
+        // a step 32 bytes into a box.
+        float s[kBM / 2], dp[kBM / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss_m64n64(s, sw128_desc(k_addr + (ks / 4) * kKBox + (ks % 4) * 32, 16),
+                          sw128_desc(q_addr + (ks / 4) * kQBox + (ks % 4) * 32, 16), ks > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss_m64n64(dp, sw128_desc(v_addr + (ks / 4) * kKBox + (ks % 4) * 32, 16),
+                          sw128_desc(o_addr + (ks / 4) * kQBox + (ks % 4) * 32, 16), ks > 0);
+        wgmma_commit();
+
+        // P^T = exp2(S^T * scale_log2 - lse2[query]), masked where the tile
+        // crosses the diagonal, the window's edge or S.  s[4j + 2*half + e]
+        // is key r0 + 8*half, query q0 + 8j + 2t + e.
+        const float* ls = Ls + st * 2 * kBM;
+        const bool need_mask = q0 + kBM > S || key_lo + 64 > S ||
+                               (a.causal && key_lo + 63 > q0) ||
+                               (a.window > 0 && key_lo <= q0 + kBM - 1 - a.window);
+        wgmma_wait<1>();
+        pin<kBM / 2>(s);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = s[4 * j + 2 * half + e];
+              x = ex2(fmaf(x, a.scale_log2, -(e ? l2.y : l2.x)));
+              const int qpos = q0 + 8 * j + 2 * t + e;
+              if (need_mask && (qpos < q_min[half] || qpos > q_max[half])) x = 0.f;
+            }
+        }
+        uint32_t pa[kBM / 4];
+        to_a<kBM>(pa, s);
+
+        // dV += P^T dO: dO's 16 query rows of step kk are 2048 bytes on; its
+        // second 64-column box (D = 128) is one box further (the LBO).
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+          wgmma_rs_nd<D>(dv, &pa[4 * kk], sw128_desc(o_addr + kk * 16 * 128, kQBox));
+        wgmma_commit();
+
+        // dS^T = P^T (dP^T - Delta[query]), while dV runs.
+        wgmma_wait<1>();
+        pin<kBM / 2>(dp);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(ls + kBM + 8 * j + 2 * t);
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int idx = 4 * j + 2 * half + e;
+              dp[idx] = s[idx] * (dp[idx] - (e ? dl.y : dl.x));
+            }
+        }
+        uint32_t da[kBM / 4];
+        to_a<kBM>(da, dp);
+
+        // dK += dS^T Q.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+          wgmma_rs_nd<D>(dk, &da[4 * kk], sw128_desc(q_addr + kk * 16 * 128, kQBox));
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin<D / 2>(dv);
+        pin<D / 2>(dk);
+        pin<kBM / 4>(pa);
+        pin<kBM / 4>(da);
+        mbar_arrive(&empty[st]);
+      }
+    }
+
+    // Epilogue: dK * scale and dV in bf16, keys past S not stored.
+    const int64_t ld = static_cast<int64_t>(a.KV) * D;
+    const int64_t off = (static_cast<int64_t>(b) * S * a.KV + g) * D;
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + off, ld, dk, r0, S, a.scale);
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + off, ld, dv, r0, S, 1.f);
   }
 }
 
-// Pass 2: dQ of one 64-row query tile of one query head.  Warp w owns rows
-// q0 + 16w .. + 15; per key tile it forms S and dP (16 rows x 32 keys,
-// twice) and accumulates dQ += dS K.
+// dQ of 128 query rows of one query head: consumer c owns rows
+// q0 + 64c .. + 63 and walks the 128-key tiles in range.
 template <int D>
-__global__ void __launch_bounds__(kBfThreads) bwd_dq_bf16(BwdArgs a) {
-  constexpr int NS = D + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* Os = Qs + kBT * NS;  // dO
-  __nv_bfloat16* Ks = Os + kBT * NS;
-  __nv_bfloat16* Vs = Ks + kBT * NS;
-  __nv_bfloat16* KT = Vs + kBT * NS;
+__global__ void __launch_bounds__(kWsThreads, 1)
+    bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                 WsArgs a) {
+  constexpr int kBoxes = D / kBox;
+  constexpr int kTile = kBN * D * 2;   // bytes of a Q, dO, K or V tile
+  constexpr int kBoxBytes = kBN * 128;
+  constexpr int kNT = kBN / 8;         // 8-key column groups of the score fragment
+
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kQStages];
+  uint64_t* q_full = &bars[0];
+  uint64_t* full = &bars[1];
+  uint64_t* empty = &bars[1 + kQStages];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* Os = Qs + kTile;                 // dO
+  uint8_t* Ks = Os + kTile;
+  uint8_t* Vs = Ks + kQStages * kTile;
 
   const int b = blockIdx.x / a.H;
   const int h = blockIdx.x % a.H;
   const int g = h / (a.H / a.KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBT;  // the longest causal rows first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int qw = 16 * warp;
-  const float scale_log2 = a.scale * kLog2e;
+  const int S = a.S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBN;  // the longest causal rows first
+  const int q_last = min(q0 + kBN, S) - 1;
+  int kt_end = (S + kBN - 1) / kBN;
+  if (a.causal) kt_end = min(kt_end, q_last / kBN + 1);
+  const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / kBN : 0;
 
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.qsb + h * a.qsh;
-  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(a.dout) + b * a.dsb + h * a.dsh;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.ksb + g * a.ksh;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + b * a.vsb + g * a.vsh;
-  load_tile_bf16<D>(Qs, nullptr, qb, a.qss, q0, a.S);
-  load_tile_bf16<D>(Os, nullptr, ob, a.dss, q0, a.S);
-
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + qw + gr + 8 * half;
-    const int64_t idx = (static_cast<int64_t>(b) * a.H + h) * a.S + row;
-    lse2[half] = row < a.S ? a.lse[idx] * kLog2e : 0.f;
-    dl[half] = row < a.S ? a.delta[idx] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  __syncthreads();
 
-  int kt_first, kt_end;
-  key_tiles(a, q0, kBT, &kt_first, &kt_end);
-  for (int kt = kt_first; kt < kt_end; ++kt) {
-    const int k0 = kt * kBT;
-    __syncthreads();
-    load_tile_bf16<D>(Ks, KT, kb, a.kss, k0, a.S);
-    load_tile_bf16<D>(Vs, nullptr, vb, a.vss, k0, a.S);
-    __syncthreads();
-#pragma unroll 1
-    for (int ck = 0; ck < kBT; ck += 32) {
-      const int klo = k0 + ck, khi = k0 + ck + 31;
-      const int qlo = q0 + qw, qhi = q0 + qw + 15;
-      if (klo >= a.S || qlo >= a.S || (a.causal && klo > qhi) ||
-          (a.window > 0 && khi <= qlo - a.window))
-        continue;
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t aq[4], ao[4];
-        frag_a(aq, Qs, NS, qw, 16 * ks);
-        frag_a(ao, Os, NS, qw, 16 * ks);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          uint32_t bk[2], bv[2];
-          frag_b(bk, Ks, NS, ck + 8 * n, 16 * ks);
-          frag_b(bv, Vs, NS, ck + 8 * n, 16 * ks);
-          mma_bf16(s[n], aq, bk);
-          mma_bf16(dp[n], ao, bv);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * kTile);
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load_4d(Qs + x * kBoxBytes, &tq, q_full, x * kBox, h, q0, b);
+        tma_load_4d(Os + x * kBoxBytes, &tdo, q_full, x * kBox, h, q0, b);
+      }
+      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int st = i % kQStages;
+        mbar_wait(&empty[st], ((i / kQStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * kTile);
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(Ks + st * kTile + x * kBoxBytes, &tk, &full[st], x * kBox, g, kt * kBN, b);
+          tma_load_4d(Vs + st * kTile + x * kBoxBytes, &tv, &full[st], x * kBox, g, kt * kBN, b);
         }
       }
-      // s[n][e] is query qw + gr + 8 (e >> 1), key ck + 8n + 2t + (e & 1).
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int half = e >> 1;
-          const int qpos = q0 + qw + gr + 8 * half;
-          const int kpos = k0 + ck + 8 * n + 2 * t + (e & 1);
-          float p = 0.f;
-          if (allowed(qpos, kpos, a)) p = exp2f(fmaf(s[n][e], scale_log2, -lse2[half]));
-          dp[n][e] = p * (dp[n][e] - dl[half]);
-        }
-      uint32_t da[2][4];
-      acc_to_a(da, dp);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          uint32_t bk[2];
-          frag_b(bk, KT, kTS, 8 * n, ck + 16 * kk);
-          mma_bf16(dq[n], da[kk], bk);
-        }
     }
-  }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int t = lane & 3;
+    const int row_lo = q0 + 64 * c;                    // this warpgroup's rows
+    const int r0 = row_lo + 16 * warp + (lane >> 2);   // this thread's rows: r0 and r0 + 8
+    const uint32_t q_base = smem_addr(Qs) + c * 64 * 128;
+    const uint32_t o_base = smem_addr(Os) + c * 64 * 128;
 
-  __nv_bfloat16* dqb = static_cast<__nv_bfloat16*>(a.dq);
+    // Per row: lse in base 2, Delta = rowsum(dO * o) (the quad that shares
+    // the row takes a quarter of its columns each, 16-byte loads), and the
+    // keys it may see, [k_min, k_max].  The quad's first thread stores lse
+    // and Delta for the dK / dV kernel, which runs after this one.
+    float lse2[2], dl[2];
+    int k_min[2], k_max[2];
+    const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(a.o) + b * a.osb + h * a.osh;
+    const __nv_bfloat16* db = static_cast<const __nv_bfloat16*>(a.dout) + b * a.dsb + h * a.dsh;
+    const int64_t bh = static_cast<int64_t>(b) * a.H + h;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + qw + gr + 8 * half;
-    if (row >= a.S) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * a.S + row) * a.H + h) * D + 2 * t;
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      k_min[half] = a.window > 0 ? row - a.window + 1 : 0;
+      k_max[half] = a.causal ? min(row, S - 1) : S - 1;
+      float acc = 0.f;
+      if (row < S) {
+        const uint4* op = reinterpret_cast<const uint4*>(ob + row * a.oss + t * (D / 4));
+        const uint4* dp = reinterpret_cast<const uint4*>(db + row * a.dss + t * (D / 4));
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dqb + off + 8 * n) =
-          pack_bf16(dq[n][2 * half] * a.scale, dq[n][2 * half + 1] * a.scale);
+        for (int u = 0; u < D / 32; ++u) {
+          const uint4 x = op[u], y = dp[u];
+          const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 xf = __bfloat1622float2(x2[e]), yf = __bfloat1622float2(y2[e]);
+            acc = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, acc));
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      dl[half] = acc;
+      lse2[half] = row < S ? a.lse[bh * S + row] * kLog2e : 0.f;
+      if (t == 0 && row < S) {
+        a.scratch[bh * a.ldl + row] = acc;
+        a.scratch[(static_cast<int64_t>(a.B) * a.H + bh) * a.ldl + row] = lse2[half];
+      }
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+      const int st = i % kQStages;
+      const int k0 = kt * kBN;
+      mbar_wait(&full[st], (i / kQStages) & 1);
+      if (row_lo >= S || (a.causal && k0 > row_lo + 63) ||
+          (a.window > 0 && k0 + kBN - 1 <= row_lo - a.window)) {
+        mbar_arrive(&empty[st]);
+        continue;
+      }
+      const uint32_t k_addr = fresh(smem_addr(Ks) + st * kTile);
+      const uint32_t v_addr = fresh(smem_addr(Vs) + st * kTile);
+      const uint32_t q_addr = fresh(q_base), o_addr = fresh(o_base);
+
+      // S = Q K^T, then dP = dO V^T, as two groups.
+      float s[kBN / 2], dp[kBN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
+        wgmma_ss_m64n128(s, sw128_desc(q_addr + off, 16), sw128_desc(k_addr + off, 16), ks > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
+        wgmma_ss_m64n128(dp, sw128_desc(o_addr + off, 16), sw128_desc(v_addr + off, 16), ks > 0);
+      }
+      wgmma_commit();
+
+      // P = exp2(S * scale_log2 - lse2[row]) while dP runs; s[4j + 2*half + e]
+      // is row r0 + 8*half, key k0 + 8j + 2t + e.  Rows past S are not
+      // stored, so only keys need the mask's ragged edge.
+      const bool need_mask = k0 + kBN > S || (a.causal && k0 + kBN - 1 > row_lo) ||
+                             (a.window > 0 && k0 <= row_lo + 63 - a.window);
+      wgmma_wait<1>();
+      pin<kBN / 2>(s);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * half + e];
+            x = ex2(fmaf(x, a.scale_log2, -lse2[half]));
+            const int kpos = k0 + 8 * j + 2 * t + e;
+            if (need_mask && (kpos < k_min[half] || kpos > k_max[half])) x = 0.f;
+          }
+
+      // dS = P (dP - Delta[row]), in bf16 the A fragment of dQ += dS K.
+      wgmma_wait<0>();
+      pin<kBN / 2>(dp);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * half + e;
+            dp[idx] = s[idx] * (dp[idx] - dl[half]);
+          }
+      uint32_t da[kBN / 4];
+      to_a<kBN>(da, dp);
+
+      // dQ += dS K: K's 16 key rows of step kk are 2048 bytes on, its second
+      // 64-column box one box further (the LBO).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs_nd<D>(dq, &da[4 * kk], sw128_desc(k_addr + kk * 16 * 128, kBoxBytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<D / 2>(dq);
+      pin<kBN / 4>(da);
+      mbar_arrive(&empty[st]);
+    }
+
+    // Epilogue: dQ * scale in bf16, rows past S not stored.
+    const int64_t ld = static_cast<int64_t>(a.H) * D;
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + (static_cast<int64_t>(b) * S * a.H + h) * D,
+                  ld, dq, r0, S, a.scale);
   }
 }
 
@@ -655,20 +1018,113 @@ cudaError_t run(K kernel, dim3 grid, int threads, int smem, cudaStream_t st, con
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch(const BwdArgs& a, bool bf16, cudaStream_t st) {
-  const int64_t rows = static_cast<int64_t>(a.B) * a.S * a.H;
-  const dim3 dgrid(static_cast<unsigned>((rows + 7) / 8));
-  cudaError_t err = bf16 ? run(bwd_delta<__nv_bfloat16, D>, dgrid, 256, 0, st, a)
-                         : run(bwd_delta<float, D>, dgrid, 256, 0, st, a);
-  if (err != cudaSuccess) return err;
-  if (bf16) {
-    err = run(bwd_dkdv_bf16<D>, dim3(a.B * a.KV, (a.S + kBT - 1) / kBT), kBfThreads,
-              dkdv_bf16_smem<D>(), st, a);
-    if (err != cudaSuccess) return err;
-    return run(bwd_dq_bf16<D>, dim3(a.B * a.H, (a.S + kBT - 1) / kBT), kBfThreads,
-               dq_bf16_smem<D>(), st, a);
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
   }
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor with element strides (sb, ss, sh, 1) as a
+// 4-d map (D, heads, S, B) read in boxes of 64 columns x 1 head x `rows`
+// rows, 128-byte swizzled.
+bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int D, int64_t sb, int64_t ss, int64_t sh, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The (2 B H, S) fp32 rows of Delta and lse (row stride ldl) in boxes of
+// kBM columns.
+bool make_rows_map(EncodeTiledFn enc, CUtensorMap* map, const float* ptr, int rows, int S,
+                   int ldl) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldl) * 4};
+  const cuuint32_t box[2] = {kBM, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA addresses a base on 16 bytes and strides that are multiples of 16
+// bytes, below 2^40; the wrapper copies a tensor otherwise.
+bool tma_ok(const void* p, int64_t s0, int64_t s1, int64_t s2) {
+  const int64_t lim = int64_t(1) << 39;  // elements of 2 bytes
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 > 0 && s1 > 0 && s2 > 0 && s0 % 8 == 0 &&
+         s1 % 8 == 0 && s2 % 8 == 0 && s0 < lim && s1 < lim && s2 < lim;
+}
+
+// dQ first (it also stores every row's Delta and lse in base 2), then dK
+// and dV, which read them.
+template <int D>
+cudaError_t launch_bf16(const BwdArgs& a, cudaStream_t st) {
+  if (!tma_ok(a.q, a.qsb, a.qss, a.qsh) || !tma_ok(a.k, a.ksb, a.kss, a.ksh) ||
+      !tma_ok(a.v, a.vsb, a.vss, a.vsh) || !tma_ok(a.o, a.osb, a.oss, a.osh) ||
+      !tma_ok(a.dout, a.dsb, a.dss, a.dsh)) {
+    return cudaErrorInvalidValue;
+  }
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int ldl = (a.S + 3) / 4 * 4;  // rows of Delta and lse on 16 bytes, as TMA reads them
+  const WsArgs w{a.o,   a.dout, a.lse, a.delta,   a.dq,    a.dk,     a.dv,    a.osb, a.oss,
+                 a.osh, a.dsb,  a.dss, a.dsh,     a.B,     a.S,      a.H,     a.KV,  ldl,
+                 a.causal, a.window, a.scale, a.scale * kLog2e};
+  const dim3 grid(1, (a.S + kBN - 1) / kBN);
+  CUtensorMap tq, tdo, tk, tv, tld;
+  if (!make_map(enc, &tq, a.q, a.B, a.S, a.H, D, a.qsb, a.qss, a.qsh, kBN) ||
+      !make_map(enc, &tdo, a.dout, a.B, a.S, a.H, D, a.dsb, a.dss, a.dsh, kBN) ||
+      !make_map(enc, &tk, a.k, a.B, a.S, a.KV, D, a.ksb, a.kss, a.ksh, kBN) ||
+      !make_map(enc, &tv, a.v, a.B, a.S, a.KV, D, a.vsb, a.vss, a.vsh, kBN)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem_q = dq_smem_bytes<D>();
+  constexpr int smem_kv = dkdv_smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_kv);
+  if (err != cudaSuccess) return err;
+  bwd_dq_wgmma<D><<<dim3(a.B * a.H, grid.y), kWsThreads, smem_q, st>>>(tq, tdo, tk, tv, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // The dK / dV kernel streams 64-row tiles of q and dO.
+  if (!make_map(enc, &tq, a.q, a.B, a.S, a.H, D, a.qsb, a.qss, a.qsh, kBM) ||
+      !make_map(enc, &tdo, a.dout, a.B, a.S, a.H, D, a.dsb, a.dss, a.dsh, kBM) ||
+      !make_rows_map(enc, &tld, a.delta, 2 * a.B * a.H, a.S, ldl)) {
+    return cudaErrorInvalidValue;
+  }
+  bwd_dkdv_wgmma<D><<<dim3(a.B * a.KV, grid.y), kWsThreads, smem_kv, st>>>(tq, tdo, tk, tv, tld,
+                                                                            w);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const BwdArgs& a, cudaStream_t st) {
+  const int64_t rows = static_cast<int64_t>(a.B) * a.S * a.H;
+  cudaError_t err = run(bwd_delta<D>, dim3(static_cast<unsigned>((rows + 7) / 8)), 256, 0, st, a);
+  if (err != cudaSuccess) return err;
   err = run(bwd_dkdv_f32<D>, dim3(a.B * a.KV, (a.S + kFT - 1) / kFT), kFThreads, f32_smem<D>(),
             st, a);
   if (err != cudaSuccess) return err;
@@ -676,15 +1132,11 @@ cudaError_t launch(const BwdArgs& a, bool bf16, cudaStream_t st) {
              a);
 }
 
-bool vec_ok(const void* p, int64_t s0, int64_t s1, int64_t s2) {  // 16-byte bf16 vectors
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 % 8 == 0 && s1 % 8 == 0 && s2 % 8 == 0;
-}
-
 }  // namespace
 
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const float* lse, float* delta, void* dq, void* dk, void* dv,
+    const float* lse, float* scratch, void* dq, void* dk, void* dv,
     int B, int S, int H, int KV, int D,
     int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss, int64_t osh,
@@ -695,17 +1147,12 @@ extern "C" int flash_attention_bwd_launch(
       (dtype != 0 && dtype != 1) || (D != 64 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool bf16 = dtype == 1;
-  if (bf16 && (!vec_ok(q, qsb, qss, qsh) || !vec_ok(k, ksb, kss, ksh) || !vec_ok(v, vsb, vss, vsh) ||
-               !vec_ok(o, osb, oss, osh) || !vec_ok(dout, dsb, dss, dsh) ||
-               reinterpret_cast<uintptr_t>(dq) % 16 != 0 ||
-               reinterpret_cast<uintptr_t>(dk) % 16 != 0 ||
-               reinterpret_cast<uintptr_t>(dv) % 16 != 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const BwdArgs a{q,   k,   v,   o,   dout, lse, delta, dq,  dk,  dv,  B,      S,     H,
-                  KV,  qsb, qss, qsh, ksb,  kss, ksh,   vsb, vss, vsh, osb,    oss,   osh,
-                  dsb, dss, dsh, causal, window, scale};
+  const BwdArgs a{q,   k,   v,   o,   dout, lse, scratch, dq,  dk,  dv,  B,      S,     H,  KV,
+                  qsb, qss, qsh, ksb, kss,  ksh, vsb,     vss, vsh, osb, oss,    osh,   dsb, dss,
+                  dsh, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(D == 64 ? launch<64>(a, bf16, st) : launch<128>(a, bf16, st));
+  if (dtype == 1) {
+    return static_cast<int>(D == 64 ? launch_bf16<64>(a, st) : launch_bf16<128>(a, st));
+  }
+  return static_cast<int>(D == 64 ? launch_f32<64>(a, st) : launch_f32<128>(a, st));
 }

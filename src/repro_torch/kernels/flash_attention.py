@@ -22,17 +22,21 @@ more.  On a CPU tensor it computes the same function with
 ``full_attention`` when ``causal=False``), and only there: a CUDA tensor
 gets the kernel or an error, never the plain version.
 
-The contract is the reference's: q ``(B, S, H, D)``, k and v
-``(B, S, KV, D)`` with ``H % KV == 0``, fp32 or bf16, the output in q's
-dtype; query head ``h`` reads KV head ``h // (H // KV)``; the scale is
+The contract is the reference's: q ``(B, S, H, D)``, k and v ``(B, S,
+KV, D)`` with ``H % KV == 0``, fp32 or bf16, the output in q's dtype;
+query head ``h`` reads KV head ``h // (H // KV)``; the scale is
 ``1/sqrt(D)``; queries and keys share positions ``0..S-1``.  One thing
 is wider: S need not be a multiple of a block (the reference asserts it
 is); the kernel masks the ragged edge itself (TMA fills keys past S with
-zeros).  The bf16 path needs q, k and v on 16-byte bases and strides,
-which TMA addresses; the wrapper copies a tensor that is not.  Rows with
-no key in range give 0.  fp32 inputs run on the CUDA cores in fp32; bf16
-inputs on the tensor cores with fp32 accumulation and an fp32 online
-softmax (in base 2), the
+zeros).  One is narrower: the kernels take one length for queries and
+keys, so a CUDA call whose k is longer or shorter than q raises
+``ValueError`` before any launch (the reference takes Sk != Sq; the CPU
+path does too, through the plain version), and so does any call of the
+backward, whose plain version assumes one length.  The bf16 path needs
+q, k and v on 16-byte bases and strides, which TMA addresses; the
+wrapper copies a tensor that is not.  Rows with no key in range give 0.
+fp32 inputs run on the CUDA cores in fp32; bf16 inputs on the tensor
+cores with fp32 accumulation and an fp32 online softmax (in base 2), the
 probabilities rounded to bf16 for the product with V (unnormalized,
 where ``causal_attention`` rounds the normalized weights), so bf16
 results agree to the reference's bf16 tolerance (2e-2), not bit for bit.
@@ -45,10 +49,16 @@ log-sum-exp stored as well (fp32 ``(B, H, S)``), and its backward is the
 hand-written kernel in ``csrc/flash_attention_bwd.cu`` behind
 :func:`flash_attention_bwd` (the same contract as the forward: causal or
 full, window, GQA, D 64 or 128, fp32 or bf16, ragged S), never autograd
-through the plain version.  :func:`flash_attention_bwd_plain` is that
-gradient in closed form, the kernel's plain version.  A call without a
-gradient (the prefill) stores no log-sum-exp.  A CPU call differentiates
-through :func:`flash_attention_plain`, as the reference does.
+through the plain version.  For bf16 it is two warp-specialised wgmma
+kernels fed by TMA, as the forward is: dQ a block per 128 query rows,
+streaming K and V tiles past q and dO held in shared memory (it also
+forms Delta = rowsum(dO o)); then dK and dV a block per 128 keys,
+streaming 64-row tiles of q and dO past K and V.  Each output has one
+writer, so two launches on the same inputs agree bit for bit.
+:func:`flash_attention_bwd_plain` is that gradient in closed form, the
+kernel's plain version.  A call without a gradient (the prefill) stores
+no log-sum-exp.  A CPU call differentiates through
+:func:`flash_attention_plain`, as the reference does.
 """
 from __future__ import annotations
 
@@ -131,6 +141,15 @@ def _as_aligned(t: torch.Tensor) -> torch.Tensor:
     return t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
 
 
+def _check_one_length(q: torch.Tensor, k: torch.Tensor) -> None:
+    """The kernels (and the backward's plain version) take one sequence
+    length for queries and keys: refuse k of another length before
+    anything is launched."""
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"the flash_attention kernels take one length for queries and keys, "
+                         f"got q of {q.shape[1]} and k of {k.shape[1]}")
+
+
 def _check_head_dim(D: int) -> None:
     if D not in HEAD_DIMS:
         raise ValueError(f"the flash_attention kernels are built for head widths {HEAD_DIMS}, "
@@ -141,6 +160,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: Optional[int], lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward kernel on aligned q, k, v; with ``lse`` (fp32 ``(B, H,
     S)``) it also stores the row log-sum-exp there."""
+    _check_one_length(q, k)
     B, S, H, D = q.shape
     KV = k.shape[2]
     _check_head_dim(D)
@@ -173,6 +193,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_one_length(q, k)
     if q.numel() == 0:
         return torch.zeros_like(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -285,9 +306,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """(dq, dk, dv) of attention, given the forward's inputs, output ``o``,
     row log-sum-exp ``lse`` (fp32 ``(B, H, S)``) and the output's gradient
     ``dout``; each in its input's dtype and shape.  A CUDA call launches
-    the backward kernel (three kernels in order on the current stream, one
-    launch counted); a CPU call computes :func:`flash_attention_bwd_plain`."""
+    the backward kernel (its kernels in order on the current stream, two
+    for bf16 and three for fp32, one launch counted); a CPU call computes
+    :func:`flash_attention_bwd_plain`.  Either refuses k of another length
+    than q."""
     _check(q, k, v, causal, window)
+    _check_one_length(q, k)
     if o.shape != q.shape or dout.shape != q.shape or lse.shape != (q.shape[0], q.shape[2],
                                                                       q.shape[1]):
         raise ValueError(f"o {tuple(o.shape)}, dout {tuple(dout.shape)} and lse "
@@ -307,12 +331,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, KV, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, KV, D), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # Delta, then (bf16) lse in base 2; rows of S floats rounded up to 16 bytes.
+    scratch = torch.empty(2 * B * H * (-(-S // 4) * 4), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, S, H, KV, D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                  *dout.stride()[:3],
@@ -324,6 +349,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     return dq, dk, dv
 
 
-# Backward launches since the count was last set to 0 (one a call, for its
-# three kernels; CPU calls launch nothing and do not count).
+# Backward launches since the count was last set to 0 (one a call, for all
+# its kernels; CPU calls launch nothing and do not count).
 flash_attention_bwd.launches = 0  # type: ignore[attr-defined]

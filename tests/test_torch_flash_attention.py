@@ -133,6 +133,56 @@ def test_rejects_bad_input(bad):
         flash_attention(q, k, v, **kw)
 
 
+@pytest.mark.parametrize("sq,sk", [(128, 256), (256, 128), (40, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_two_lengths_matches_jax_full_attention(sq, sk, dtype):
+    """The kernels take one length for queries and keys, but the CPU path
+    takes Sk != Sq as the reference does: full attention of q over longer
+    or shorter k and v equals the JAX ``full_attention`` within the
+    reference's tolerance."""
+    import jax.numpy as jnp
+    from repro.models.layers import full_attention
+
+    rng = np.random.default_rng(sq + sk)
+    q = rng.standard_normal((2, sq, 4, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, sk, 2, 64)).astype(np.float32) for _ in range(2))
+    want = full_attention(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)))
+    got = flash_attention(*_torch((q, k, v), dtype), causal=False)
+    assert got.shape == (2, sq, 4, 64) and got.dtype == _DTYPES[dtype]
+    _close(got.float(), np.asarray(want, np.float32), dtype)
+
+
+def test_launch_refuses_two_lengths_before_any_launch():
+    """The helper every CUDA call goes through before it launches (the
+    forward's ``_launch``) refuses k of another length than q, whatever the
+    device: the check runs before anything reaches the card."""
+    from repro_torch.kernels.flash_attention import _check_one_length, _launch
+
+    q, _, _ = _torch(_qkv(1, 128, 4, 4, 64, seed=6), "float32")
+    k, v = (torch.zeros(1, 256, 4, 64) for _ in range(2))
+    before = flash_attention.launches
+    for call in (lambda: _check_one_length(q, k),
+                 lambda: _launch(q, k, v, False, None),
+                 lambda: _launch(q, k[:, :64], v[:, :64], True, None)):
+        with pytest.raises(ValueError, match="one length"):
+            call()
+    assert flash_attention.launches == before
+    _check_one_length(q, q)
+
+
+@pytest.mark.parametrize("sk", [64, 256])
+def test_bwd_refuses_two_lengths(sk):
+    """The backward's plain version (and its kernel) assume one length, so
+    ``flash_attention_bwd`` refuses k of another length on the CPU too."""
+    q, _, _ = _torch(_qkv(1, 128, 4, 2, 16, seed=7), "float32")
+    k, v = (torch.randn(1, sk, 2, 16) for _ in range(2))
+    lse = torch.zeros(1, 4, 128)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="one length"):
+        flash_attention_bwd(q, k, v, q, lse, q, causal=False)
+    assert flash_attention_bwd.launches == before
+
+
 @pytest.mark.parametrize("view,aligned", [
     ("contiguous", True),
     ("fused_qkv", True),         # heads strided inside a (B, S, 3, H, D) projection
@@ -267,6 +317,28 @@ def test_kernel_refuses_grad_on_card():
         flash_attention(q, k, v)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_refuses_two_lengths_on_card(dtype):
+    """Card only: q (1, 128, 4, 64) over k and v of 256 (or 64) positions
+    would reach kernels that read one length; the forward (with or without
+    a gradient) and the backward raise before any launch."""
+    _card()
+    q, _, _ = _torch(_qkv(1, 128, 4, 4, 64, seed=8), dtype, "cuda")
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    for sk in (256, 64):
+        k, v = (torch.randn(1, sk, 4, 64, device="cuda").to(q.dtype) for _ in range(2))
+        with pytest.raises(ValueError, match="one length"):
+            flash_attention(q, k, v, causal=False)
+        with pytest.raises(ValueError, match="one length"):
+            flash_attention(q.clone().requires_grad_(True), k, v, causal=False)
+        with pytest.raises(ValueError, match="one length"):
+            flash_attention_bwd(q, k, v, q, torch.zeros(1, 4, 128, device="cuda"), q,
+                                causal=False)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == before
+
+
 
 # ---------------------------------------------------------------------------
 # The gradient: autograd through the plain version against jax.grad of the
@@ -367,13 +439,26 @@ def _rel_l2(got, want):
     (2, 300, 4, 4, 128, False, None),     # full attention, ragged S
     (1, 1000, 4, 1, 64, True, None),      # ragged S, MQA
     (2, 130, 4, 2, 128, True, None),
+    # The bf16 kernels' tile edges: 64-row query tiles and 128-key blocks
+    # (dK / dV), 128-row query blocks and 128-key tiles (dQ).
+    (2, 1, 4, 2, 128, True, None),        # one position
+    (1, 63, 4, 4, 64, True, None),
+    (1, 64, 8, 1, 128, True, None),       # GQA 8:1
+    (2, 65, 4, 4, 128, True, None),
+    (1, 127, 8, 1, 64, True, None),
+    (2, 128, 4, 2, 128, True, None),
+    (1, 129, 16, 2, 64, True, 16),        # a window narrower than a 64-row tile, GQA 8:1
+    (2, 129, 4, 4, 128, False, None),
+    (1, 2048, 8, 1, 128, True, None),
+    (1, 2048, 8, 8, 64, True, 40),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_kernel_matches_plain_on_card(case, dtype):
     """Card only: the backward kernel against its plain version computed in
     fp32 from the same inputs (one launch).  bf16: relative L2 <= 1e-2 per
-    gradient; fp32: within 2e-5 of each gradient's max |.|; the forward's
-    log-sum-exp within 2e-5 of the plain one's scale."""
+    gradient; fp32: within 2e-5 of each gradient's max |.|.  At S = 1, dq
+    and dk are 0 in exact arithmetic (one key: P = 1 and dP = Delta), so
+    they are held within the same bound of max |dv| instead."""
     _card()
     B, S, H, KV, D, causal, window = case
     q, k, v = _torch(_qkv(B, S, H, KV, D, seed=S + H + D), dtype, "cuda")
@@ -388,12 +473,39 @@ def test_bwd_kernel_matches_plain_on_card(case, dtype):
     lse = attention_lse_plain(q.float(), k.float(), causal, window)
     want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.detach().float(), lse,
                                      dout.float(), causal, window)
-    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+    tol = 1e-2 if dtype == "bfloat16" else 2e-5
+    for name, got, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), want):
         assert got.dtype == q.dtype and got.shape == w.shape
-        if dtype == "bfloat16":
+        if S == 1 and name != "dv":
+            assert (got.float() - w).abs().max().item() <= tol * want[2].abs().max().item()
+        elif dtype == "bfloat16":
             assert _rel_l2(got, w) <= 1e-2
         else:
             assert (got - w).abs().max().item() <= 2e-5 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (2, 1000, 16, 2, 128, True, None),    # GQA 8:1, ragged S
+    (1, 700, 4, 4, 64, True, 100),
+    (2, 300, 4, 4, 128, False, None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernel_deterministic_on_card(case, dtype):
+    """Card only: each gradient has one writer and no atomics, so two
+    launches on the same inputs agree bit for bit."""
+    _card()
+    B, S, H, KV, D, causal, window = case
+    q, k, v = _torch(_qkv(B, S, H, KV, D, seed=S + KV), dtype, "cuda")
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(6),
+                       device="cuda").to(q.dtype)
+    lse = attention_lse_plain(q.float(), k.float(), causal, window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    first = flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
+    second = flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
