@@ -65,9 +65,23 @@ or of the JAX package.  In order it:
      and the adapters moved after every round, per-group wire bytes as
      ``measure_messages`` counts them, ``dequant_fold`` once a silo in an
      int8 round;
- 12. runs reduced olmo-1b in fp32 on the card and on the CPU from the
-     same weights: one train step, and one federated LoRA round of 2
-     silos (adapters within 1e-4, base bit-equal, traces equal).
+ 12. trains mamba2-130m at full width and depth (bf16, (4, 2048)
+     batches): the SSD backward kernel held against its plain version
+     (phase 3: fp32 and bf16, ragged chunks, P and N below their maxima,
+     odd H, a relaunch bit-equal, the whole scan's gradient from an
+     initial state, refused inputs with no launch), timed beside the
+     forward kernel (phase 4, with each of its three kernels' device
+     time), five timed ``make_train_step`` steps and one traced, each with
+     24 forward and 24 backward launches, and ``python -m
+     repro_torch.launch.train --arch mamba2-130m`` in its own process
+     (exit 0);
+ 13. runs 2 FedAvg rounds (``FLServer``) of 2 mamba2-130m silos at full
+     width, each fold checked against the plain weighted mean on the
+     card, ``fedavg_reduce`` once a round;
+ 14. runs reduced olmo-1b and mamba2-130m in fp32 on the card and on the
+     CPU from the same weights: one train step each, and one federated
+     LoRA round of olmo-1b over 2 silos (adapters within 1e-4, base
+     bit-equal, traces equal).
 For each path every kernel's launch count is set to 0 just before and
 read just after.
 
@@ -100,10 +114,12 @@ TIMED_PER_ROUND = 10    # launches of each per round: 40 samples each
 PREFILL_RUNS = 5        # timed full-width prefills a model, after one warm-up
 PREFILL_B, PREFILL_S = 4, 2048   # the zoo's full-width prefill batch
 KERNELS = ("fedavg_reduce", "dequant_fold", "flash_attention", "flash_attention_bwd",
-           "ssd_chunk_scan")
+           "ssd_chunk_scan", "ssd_intra_chunk_bwd")
 TRAIN_B, TRAIN_S = 2, 2048      # the zoo's full-width training batch
 TRAIN_STEPS = 5                 # timed train steps, after one warm-up
 LORA_SILOS = 4
+SSM_B = 4                       # mamba2-130m's training batch (4, 2048)
+SSM_SILOS = 2                   # mamba2-130m silos of the FedAvg rounds
 
 
 def check(cond: bool, what: str) -> None:
@@ -162,11 +178,11 @@ def _wrappers() -> dict:
     from repro_torch.kernels.dequant_fold import dequant_fold
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_intra_chunk_bwd
 
     return {"fedavg_reduce": fedavg_reduce, "dequant_fold": dequant_fold,
             "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
-            "ssd_chunk_scan": ssd_chunk_scan}
+            "ssd_chunk_scan": ssd_chunk_scan, "ssd_intra_chunk_bwd": ssd_intra_chunk_bwd}
 
 
 def zero_counts() -> None:
@@ -231,7 +247,7 @@ def phase_build():
 
     t0 = time.monotonic()
     libs = _build.build(["fedavg_reduce", "dequant_fold", "flash_attention",
-                         "flash_attention_bwd", "ssd_scan"])
+                         "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"])
     say(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
         f"in {time.monotonic() - t0:.1f} s")
     ptxas, spills, entry = [], {}, ""
@@ -1799,51 +1815,92 @@ def phase_lora_rounds():
     return {"rounds": rounds_out, "adapter_elems": n_adapter, "total_elems": n_total}
 
 
+def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
+    """One reduced fp32 ``make_train_step`` step of ``arch`` on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batch: the loss within 1e-4, every leaf's gradient within 1e-4
+    relative L2, and ``bwd`` launched once a layer on the card, never on the
+    CPU.  The updated parameters within 1e-4 relative L2, leaf by leaf
+    where ``per_leaf``, else as one vector (the worst leaf is printed).
+    AdamW's first step moves an element by about lr whatever its
+    gradient's size, so an element whose gradient is near AdamW's eps
+    moves by an amount its gradient's last bits decide: in a leaf that
+    starts at zero (mamba2's ``conv_b``) such elements are a visible share
+    of the leaf's norm, though the gradients agree."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_optimizer_for, make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import (
+        keystr, tree_flatten, tree_flatten_with_path, tree_map, tree_unflatten)
+
+    cfg = get_config(arch).reduced().with_overrides(dtype="float32", param_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(5), "cpu")
+    names = [keystr(k) for k, _ in tree_flatten_with_path(params)[0]]
+    seq = 2 * cfg.ssm_chunk if cfg.arch_type == "ssm" else 64
+    batch = _lm_batch(SyntheticLM(cfg.vocab_size, seq, seed=1), np.random.default_rng(1), 2)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), params)
+        b = tree_map(lambda t: t.to(device), batch)
+        leaves, treedef = tree_flatten(p)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        grads = torch.autograd.grad(model.loss(tree_unflatten(treedef, live), b), live)
+        opt = make_optimizer_for(cfg)
+        zero_counts()
+        new, _, loss = make_train_step(model, opt)(p, opt.init(p), b)
+        runs[device] = ([t.cpu() for t in tree_flatten(new)[0]], [g.cpu() for g in grads],
+                        float(loss), counts()[bwd])
+    (cp, cg, cl, cn), (pp, pg, pl, pn) = runs["cuda"], runs["cpu"]
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    leaf_rel = [rel(a, b) for a, b in zip(cp, pp)]
+    worst_grad = max(rel(a, b) for a, b in zip(cg, pg))
+    whole = rel(torch.cat([t.reshape(-1) for t in cp]), torch.cat([t.reshape(-1) for t in pp]))
+    worst_i = max(range(len(leaf_rel)), key=leaf_rel.__getitem__)
+    params_ok = max(leaf_rel) <= 1e-4 if per_leaf else whole <= 1e-4
+    ok = abs(cl - pl) <= 1e-4 * max(1.0, abs(pl)) and worst_grad <= 1e-4 and params_ok
+    say(f"[reference] reduced {arch} fp32 train step (batch 2, seq {seq}), card against CPU: "
+        f"loss {cl:.6f} / {pl:.6f}, worst leaf gradient relative L2 {worst_grad:.3e} (tol 1e-4); "
+        f"updated parameters relative L2: whole model {whole:.3e}, worst leaf {leaf_rel[worst_i]:.3e} "
+        f"({names[worst_i]}) (tol 1e-4 {'per leaf' if per_leaf else 'for the whole model'}); "
+        f"{bwd} launches card {cn}, cpu {pn} {'ok' if ok else 'FAIL'}")
+    check(ok and cn == cfg.n_layers and pn == 0,
+          f"reduced {arch} train step: card agrees with the CPU")
+    return {"loss": (cl, pl), "worst_rel_l2": max(leaf_rel), "worst_leaf": names[worst_i],
+            "whole_rel_l2": whole, "worst_grad_rel_l2": worst_grad, "bwd_launches": cn}
+
+
 def phase_train_reference_check():
-    """Reduced olmo-1b in fp32 on the card (kernels) and on the CPU (plain
-    versions) from the same weights: one ``make_train_step`` step (loss
-    within 1e-4; every leaf within 1e-4 relative L2: AdamW's first step
-    moves an element by about lr whatever its gradient's size, so an
-    element whose gradient is rounding noise can differ by ~lr), and one
-    federated LoRA round (``with_lora(2)``, 2 silos, uncompressed, fold
-    cost fixed so the trace's times are arithmetic): adapters within 1e-4,
-    base leaves bit-equal, event traces equal."""
+    """Reduced olmo-1b and mamba2-130m in fp32 on the card (kernels) and on
+    the CPU (plain versions) from the same weights: one train step each
+    (``_train_step_card_vs_cpu``; olmo-1b's updated parameters held leaf by
+    leaf, mamba2-130m's, which start with zero biases, as one vector), and
+    one federated LoRA round of olmo-1b
+    (``with_lora(2)``, 2 silos, uncompressed, fold cost fixed so the
+    trace's times are arithmetic): adapters within 1e-4, base leaves
+    bit-equal, event traces equal."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM, make_lm_silos
+    from repro_torch.data import make_lm_silos
     from repro_torch.federated import AsyncFLServer
-    from repro_torch.launch.steps import make_optimizer_for, make_train_step
-    from repro_torch.models import get_model
+    from repro_torch.launch.steps import make_optimizer_for
     from repro_torch.models.fl_models import lora_adapter_schema
-    from repro_torch.utils.tree import keystr, tree_flatten, tree_flatten_with_path, tree_map
-    import numpy as np
+    from repro_torch.utils.tree import keystr, tree_flatten_with_path
 
+    olmo = _train_step_card_vs_cpu("olmo-1b", "flash_attention_bwd", per_leaf=True)
+    mamba = _train_step_card_vs_cpu("mamba2-130m", "ssd_intra_chunk_bwd", per_leaf=False)
     cfg = get_config("olmo-1b").reduced().with_overrides(dtype="float32", param_dtype="float32")
-    model = get_model(cfg)
-    params = model.init(torch.Generator().manual_seed(5), "cpu")
-    batch = _lm_batch(SyntheticLM(cfg.vocab_size, 64, seed=1), np.random.default_rng(1), 2)
-    runs = {}
-    for device in ("cuda", "cpu"):
-        p = tree_map(lambda t: t.to(device), params)
-        opt = make_optimizer_for(cfg)
-        zero_counts()
-        new, _, loss = make_train_step(model, opt)(p, opt.init(p), tree_map(
-            lambda t: t.to(device), batch))
-        runs[device] = ([t.cpu() for t in tree_flatten(new)[0]], float(loss),
-                        counts()["flash_attention_bwd"])
-    (cp, cl, cn), (pp, pl, pn) = runs["cuda"], runs["cpu"]
-    worst = max(((a.double() - b.double()).norm() / b.double().norm()).item()
-                for a, b in zip(cp, pp))
-    ok = abs(cl - pl) <= 1e-4 * max(1.0, abs(pl)) and worst <= 1e-4
-    say(f"[reference] reduced olmo-1b fp32 train step, card against CPU: loss {cl:.6f} / "
-        f"{pl:.6f}, worst leaf relative L2 {worst:.3e} (tol 1e-4); flash_attention_bwd "
-        f"launches card {cn}, cpu {pn} {'ok' if ok else 'FAIL'}")
-    check(ok and cn == cfg.n_layers and pn == 0, "reduced train step: card agrees with the CPU")
-
     lcfg = cfg.with_lora(2)
-    out = {"train_loss": (cl, pl), "train_worst_rel_l2": worst}
+    out = {"train_loss": olmo["loss"], "train_worst_rel_l2": olmo["worst_rel_l2"],
+           "ssm_train": mamba}
     results = {}
     for device in ("cuda", "cpu"):
         silos = make_lm_silos(2, lcfg.vocab_size, 32, [(4, 2), (4, 2)], seed=2)
@@ -1880,6 +1937,393 @@ def phase_train_reference_check():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training mamba2-130m and federating it: ssd_intra_chunk_bwd
+# ---------------------------------------------------------------------------
+
+def _ssd_cotangents(B, L, H, P, N, Q, gen):
+    """Cotangents of the intra-chunk part's three outputs, N(0, 1) fp32."""
+    import torch
+
+    n = L // Q
+    return [torch.randn(s, generator=gen, device="cuda")
+            for s in ((B, n, H, Q, P), (B, n, H, P, N), (B, n, H, Q))]
+
+
+def phase_ssd_bwd_check():
+    """The SSD backward kernel against ``ssd_intra_chunk_bwd_plain``
+    computed in fp32 from the same inputs (the forward kernel's a_cs, the
+    same N(0, 1) cotangents): mamba2-130m's (4, 2048, 24, 64, N 128, chunk
+    256) in bf16 (the main path's call) and fp32, P and N below their
+    maxima, chunks of 96, 100, 150 and 160 positions (not multiples of the
+    kernel's 64-position tiles), H of 5 and 7 (not multiples of its pair of
+    heads), and N of 36 (not a multiple of 16).  fp32: within 2e-5 of each
+    gradient's max(1, max|plain|); bf16 (dx, dB and dC come back in bf16):
+    relative L2 <= 1e-2 per gradient.  At mamba2-130m's shape a second
+    launch must be bit-equal.  Then the whole scan's gradient through the
+    Function with an initial state (a continuation), on the card against
+    autograd through the plain ``ssd_chunked`` on the card (2e-5 of
+    scale).  Last, inputs the kernels do not take (P 68, N 132, fp16, B of
+    another dtype than x, an odd chunk) must be refused before any launch.
+    Returns the largest |kernel - plain| over the five gradients at
+    mamba2-130m's shape in bf16."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (
+        _launch, ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk_bwd,
+        ssd_intra_chunk_bwd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf, f32 = torch.bfloat16, torch.float32
+    full = (SSM_B, PREFILL_S, 24, 64, 128, 256)
+    cases = [(full, bf), (full, f32),
+             ((2, 256, 8, 32, 64, 64), f32), ((2, 256, 8, 32, 64, 64), bf),
+             ((1, 192, 6, 64, 128, 96), bf), ((1, 200, 4, 32, 16, 100), f32),
+             ((2, 300, 5, 16, 36, 150), bf), ((2, 300, 5, 16, 36, 150), f32),
+             ((1, 320, 7, 32, 64, 160), f32), ((1, 320, 7, 32, 64, 160), bf)]
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    main_err = None
+    for (B, L, H, P, N, Q), dt in cases:
+        args = _ssd_inputs(B, L, H, P, N, dt, gen)
+        a_cs = _launch(*args, Q)[2]
+        cots = _ssd_cotangents(B, L, H, P, N, Q, gen)
+        got = ssd_intra_chunk_bwd(*args, a_cs, *cots)
+        torch.cuda.synchronize()
+        want = ssd_intra_chunk_bwd_plain(*(t.float() for t in args), a_cs, *cots)
+        tol = 1e-2 if dt == bf else 2e-5
+        ok, scores, errs = True, [], []
+        for g, w, t in zip(got, want, args):
+            ok = ok and g.dtype == t.dtype and g.shape == t.shape and bool(torch.isfinite(g).all())
+            err = (g.float() - w).abs().max().item()
+            errs.append(err)
+            scores.append(rel_l2(g, w) if dt == bf else err / max(1.0, w.abs().max().item()))
+            ok = ok and scores[-1] <= tol
+        measure = "relative L2" if dt == bf else "max|kernel-plain|/max(1,max|plain|)"
+        say(f"[check] ssd_intra_chunk_bwd B={B} L={L} H={H} P={P} N={N} chunk={Q} "
+            f"{str(dt)[6:]}: {measure} "
+            + ", ".join(f"{n} {x:.3e}" for n, x in zip(names, scores))
+            + f" (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"ssd_intra_chunk_bwd {(B, L, H, P, N, Q, dt)}")
+        if ((B, L, H, P, N, Q), dt) == (full, bf):
+            main_err = max(errs)
+            again = ssd_intra_chunk_bwd(*args, a_cs, *cots)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            say(f"[check] ssd_intra_chunk_bwd at mamba2-130m's shape, a second launch on the "
+                f"same inputs: bit-equal {same} (one writer per output, no atomics)")
+            check(same, "ssd_intra_chunk_bwd is deterministic")
+            del again
+        del args, a_cs, cots, got, want
+        torch.cuda.empty_cache()
+
+    # The whole scan's gradient, continuing from an initial state.
+    B, L, H, P, N, Q = 2, 512, 5, 32, 64, 128
+    base = _ssd_inputs(B, L, H, P, N, f32, gen)
+    h0 = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    gy = torch.randn((B, L, H, P), generator=gen, device="cuda")
+    gh = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    grads, launches = {}, {}
+    for name, fn in (("kernel", lambda *t: ssd_chunk_scan(*t, chunk=Q, initial_state=h0)),
+                     ("plain", lambda *t: ssd_chunk_scan_plain(*t, Q, h0))):
+        ts = [t.detach().clone().requires_grad_(True) for t in base]
+        zero_counts()
+        y, h = fn(*ts)
+        grads[name] = torch.autograd.grad((y, h), ts, (gy, gh))
+        launches[name] = counts()
+    ok = (launches["kernel"]["ssd_chunk_scan"] == 1
+          and launches["kernel"]["ssd_intra_chunk_bwd"] == 1
+          and launches["plain"]["ssd_intra_chunk_bwd"] == 0)
+    scores = []
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        scores.append((g - w).abs().max().item() / max(1.0, w.abs().max().item()))
+        ok = ok and scores[-1] <= 2e-5
+    say(f"[check] ssd_chunk_scan's gradient through both kernels, continuing from an initial "
+        f"state (B={B} L={L} H={H} P={P} N={N} chunk={Q} fp32), against autograd through the "
+        f"plain ssd_chunked on the card: max|diff|/max(1,max|plain|) "
+        + ", ".join(f"{n} {x:.3e}" for n, x in zip(names, scores))
+        + f" (tol 2e-05); launches {launches['kernel']} {'ok' if ok else 'FAIL'}")
+    check(ok, "the scan's gradient with an initial state")
+    del base, h0, gy, gh, grads
+
+    # Inputs the kernels do not take, refused before any launch.
+    refused = []
+    for what, shape, dtypes, Q in (("P 68", (1, 64, 2, 68, 16), (f32, f32), 16),
+                                   ("N 132", (1, 64, 2, 16, 132), (f32, f32), 16),
+                                   ("fp16", (1, 64, 2, 16, 16), (torch.float16,) * 2, 16),
+                                   ("B of another dtype", (1, 64, 2, 16, 16), (f32, bf), 16),
+                                   ("an odd chunk", (1, 63, 2, 16, 16), (f32, f32), 21)):
+        B, L, H, P, N = shape
+        x, dt_, A, Bm, Cm = _ssd_inputs(B, L, H, P, N, dtypes[0], gen)
+        Bm = Bm.to(dtypes[1])
+        n = L // Q
+        zero_counts()
+        try:
+            ssd_intra_chunk_bwd(x, dt_, A, Bm, Cm, torch.zeros((B, n, H, Q), device="cuda"),
+                                torch.zeros((B, n, H, Q, P), device="cuda"),
+                                torch.zeros((B, n, H, P, N), device="cuda"),
+                                torch.zeros((B, n, H, Q), device="cuda"))
+            refused.append((what, False))
+        except (TypeError, ValueError):
+            refused.append((what, counts() == dict.fromkeys(KERNELS, 0)))
+    ok = all(r for _, r in refused)
+    say(f"[check] ssd_intra_chunk_bwd refuses, before any launch: "
+        + ", ".join(f"{w} {r}" for w, r in refused) + f" {'ok' if ok else 'FAIL'}")
+    check(ok, "inputs the SSD backward does not take are refused with no launch")
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def phase_ssd_bwd_timing():
+    """The SSD backward alone at mamba2-130m's train step (x (4, 2048, 24,
+    64), B and C (4, 2048, 128) bf16, chunk 256, fp32 cotangents): the
+    kernel, its plain version and the forward kernel in the same
+    ``alternating()`` rounds, beside the backward's bound, and each of its
+    three kernels' device time from ``torch.profiler``.
+
+    The needed work, counted where the decay is not zero (s <= l) as the
+    forward's bound is: per (b, chunk, head) dM = dy xdtᵀ and Mᵀ dy,
+    Q·(Q+1)·P each, and R = B dstᵀ and the states' term of dB, 2·Q·N·P each;
+    per (b, chunk) dC and dGᵀ C, Q·(Q+1)·N each, and G = C Bᵀ again,
+    Q·(Q+1)·N; all fp32, at 67 TFLOP/s.  The bytes are x, B, C (bf16), dt,
+    a_cs and the three cotangents read once, and dx, dB, dC (bf16), ddt and
+    dA written once.  No single PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (
+        _launch, ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    B, L, H, P, N, Q = SSM_B, PREFILL_S, 24, 64, 128, 256
+    C = L // Q
+    args = _ssd_inputs(B, L, H, P, N, torch.bfloat16, gen)
+    a_cs = _launch(*args, Q)[2]
+    cots = _ssd_cotangents(B, L, H, P, N, Q, gen)
+    q4, n = alternating({
+        "kernel": lambda: ssd_intra_chunk_bwd(*args, a_cs, *cots),
+        "plain": lambda: ssd_intra_chunk_bwd_plain(*args, a_cs, *cots),
+        "forward": lambda: _launch(*args, Q),
+    })
+    flops = B * C * H * (2 * Q * (Q + 1) * P + 4 * Q * N * P) + B * C * 3 * Q * (Q + 1) * N
+    nbytes = (2 * B * L * H * P * 2 + 4 * B * L * N * 2 + 2 * B * L * H * 4 + H * 4
+              + B * C * H * (2 * Q + Q * P + P * N) * 4)
+    row = _bound_row(q4, n, flops, FP32_FLOPS_PER_S, nbytes,
+                     "ssd_intra_chunk_bwd mamba2-130m train step (4, 2048, 24, 64), N 128, "
+                     "chunk 256, bf16", None)
+    fwd = q4["forward"]
+    row["forward_ms"], row["forward_quartiles_ms"] = fwd[1], fwd
+    say(f"[time] ssd_chunk_scan forward kernel alone in the same rounds: median {fwd[1]:.4f} ms "
+        f"(quartiles {fwd[0]:.4f}-{fwd[2]:.4f}); the backward is {row['ms'] / fwd[1]:.2f}x it")
+    dev = _device_ms(lambda: ssd_intra_chunk_bwd(*args, a_cs, *cots))
+    split = {name: sum(t for k, t in dev.items() if name in k)
+             for name in ("bwd_scores", "bwd_heads", "bwd_chunk")}
+    row["device_ms_by_kernel"], row["device_ms"] = split, sum(dev.values())
+    if not dev:
+        say("[time] ssd_intra_chunk_bwd: the profiler recorded no device time")
+    else:
+        say(f"[time] ssd_intra_chunk_bwd device time a call by kernel (torch.profiler, 5 calls): "
+            + ", ".join(f"{k} {t:.4f} ms" for k, t in split.items())
+            + f"; all device work {sum(dev.values()):.4f} ms (with dA's torch sum) against the "
+            f"{row['ms']:.4f} ms timed call")
+    del args, a_cs, cots
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ssm_train_step():
+    """mamba2-130m at full width and depth in bf16, random weights from seed
+    0, through ``make_train_step`` with ``make_optimizer_for`` (AdamW, fp32
+    state) on (4, 2048) batches of ``SyntheticLM`` tokens: one warm-up
+    step, TRAIN_STEPS timed ones (host clock ending in a synchronize), each
+    with 24 ``ssd_chunk_scan`` forward and 24 backward launches and nothing
+    else, losses finite; one more step under ``torch.profiler``.  Then the
+    trainer as a user runs it, in its own process:
+    ``python -m repro_torch.launch.train --arch mamba2-130m --steps 8
+    --batch 4 --seq 2048`` must exit 0 (the loss fell)."""
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_optimizer_for, make_train_step
+    from repro_torch.models import get_model
+
+    cfg = get_config("mamba2-130m")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = make_optimizer_for(cfg)
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    ds = SyntheticLM(cfg.vocab_size, PREFILL_S, seed=0)
+    rng = np.random.default_rng(0)
+    batches = [_lm_batch(ds, rng, SSM_B) for _ in range(TRAIN_STEPS + 2)]
+    tag = "[train] mamba2-130m bf16"
+    L = cfg.n_layers
+    only = dict.fromkeys(KERNELS, 0) | {"ssd_chunk_scan": L, "ssd_intra_chunk_bwd": L}
+    zero_counts()
+    params, state, loss = step(params, state, batches[0])   # warm-up
+    torch.cuda.synchronize()
+    check(counts() == only and math.isfinite(float(loss)), f"warm-up step launches {counts()}")
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, all_launches = [], [], []
+    for b in batches[1:TRAIN_STEPS + 1]:
+        zero_counts()
+        t0 = time.monotonic()
+        params, state, loss = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        all_launches.append(counts())
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    q1, med, q3 = quartiles(times)
+    say(f"{tag}: {model.param_count(params):,} params, batch ({SSM_B}, {PREFILL_S}): train step "
+        f"median {med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over "
+        f"{TRAIN_STEPS} steps (each {', '.join(f'{t * 1e3:.1f}' for t in times)}); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; launches a step {all_launches[-1]}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    check(all(math.isfinite(x) for x in losses), "mamba2 train step losses finite")
+    check(all(n == only for n in all_launches),
+          f"a mamba2 train step launches {L} ssd_chunk_scan forwards and {L} backwards, got "
+          f"{all_launches}")
+    zero_counts()
+    holder = {}
+
+    def traced():
+        holder["out"] = step(params, state, batches[-1])
+
+    trace = _trace_prefill(traced, tag, "train step")
+    check(counts() == only, "traced mamba2 train step launches")
+    del params, state, holder, batches
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "mamba2-130m",
+           "--steps", "8", "--batch", str(SSM_B), "--seq", str(PREFILL_S)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.monotonic() - t0
+    for line in (proc.stdout + proc.stderr).splitlines():
+        say(f"[trainer] {line}")
+    m = re.search(r"done: loss ([0-9.naif]+) -> ([0-9.naif]+)", proc.stdout)
+    first, last = (float(m.group(1)), float(m.group(2))) if m else (None, None)
+    say(f"[trainer] python -m repro_torch.launch.train --arch mamba2-130m: exit code "
+        f"{proc.returncode} in {wall:.1f} s; first loss {first}, last {last}")
+    check(proc.returncode == 0 and "device=cuda" in proc.stdout,
+          "the mamba2-130m trainer exits 0 on the card (the loss fell)")
+    return {"step_s": med, "step_s_quartiles": (q1, med, q3), "step_s_runs": times,
+            "losses": losses, "launches": all_launches[-1], "peak_bytes": peak,
+            "trace": trace, "trainer": {"rc": proc.returncode, "first_loss": first,
+                                        "last_loss": last, "wall_s": wall}}
+
+
+def phase_ssm_fedavg_rounds():
+    """FedAvg of mamba2-130m at full width, the system's main path:
+    ``FLServer`` barrier rounds over SSM_SILOS silos of ``make_lm_silos``
+    (4 train and 2 test sequences of 2048 tokens each), ``FLClient`` with
+    the zoo's loss and ``make_optimizer_for`` (AdamW), batch 2, so 2 local
+    steps a round; 2 rounds, no checkpoints (the FEMNIST path writes them).
+    After each round the global weights must be the ``n_samples``-weighted
+    mean of the silos' weights as ``fedavg_reduce_plain`` computes it on the
+    card from the same (N, L) fp32 buffer, within the barrier-round
+    kernel check's tolerance for the leaf's dtype (2e-5 fp32, 2e-2 bf16,
+    absolute and relative); each round must launch ``fedavg_reduce`` once,
+    and the SSD kernels 24 times a batch (forward for the 2 train and 1
+    eval batch of each silo, backward for the train batches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_silos
+    from repro_torch.federated import FLClient, FLServer
+    from repro_torch.federated.agg_engine import plan_for
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_plain
+    from repro_torch.launch.steps import make_optimizer_for
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_flatten
+
+    cfg = get_config("mamba2-130m")
+    model = get_model(cfg)
+    params0 = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = model.param_count(params0)
+    silos = make_lm_silos(SSM_SILOS, cfg.vocab_size, PREFILL_S, [(4, 2)] * SSM_SILOS, seed=0)
+
+    def loss_fn(p, b):
+        return model.loss(p, {"tokens": b[0], "labels": b[1]})
+
+    results = {}
+
+    class Client(FLClient):
+        def train(self, global_params):
+            res = super().train(global_params)
+            results[self.client_id] = res
+            return res
+
+    clients = [Client(s.client_id, s, loss_fn, make_optimizer_for(cfg), batch_size=2,
+                      device="cuda") for s in silos]
+    folds = []
+
+    def check_fold(round_idx, params):
+        res = [results[c.client_id] for c in clients]
+        plan = plan_for(params)
+        stacked = plan.flatten_stack([r.params for r in res])
+        w = torch.tensor([float(r.n_samples) for r in res], device="cuda")
+        want = tree_flatten(plan.unflatten(fedavg_reduce_plain(stacked, w)))[0]
+        worst = {}
+        for got, exp in zip(tree_flatten(params)[0], want):
+            tol = 2e-2 if got.dtype == torch.bfloat16 else 2e-5
+            key = str(got.dtype)[6:]
+            err = (got.float() - exp.float()).abs().max().item()
+            worst[key] = max(worst.get(key, 0.0), err)
+            check(torch.allclose(got.float(), exp.float(), atol=tol, rtol=tol),
+                  f"round {round_idx}: the fold is the n_samples-weighted mean ({key})")
+        folds.append({"round": round_idx, "n_samples": [r.n_samples for r in res],
+                      "max_abs_err": worst})
+        del stacked, want
+        return None
+
+    per_round = {"fedavg_reduce": 1,
+                 "ssd_chunk_scan": SSM_SILOS * (2 + 1) * cfg.n_layers,
+                 "ssd_intra_chunk_bwd": SSM_SILOS * 2 * cfg.n_layers}
+    launches_after = []
+
+    def hook(round_idx, params):
+        out = check_fold(round_idx, params)
+        launches_after.append(counts())
+        return out
+
+    server = FLServer(clients, params0, measure_round_messages=False, post_round_hook=hook,
+                      device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    run = server.run(2)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    tag = "[fedavg] mamba2-130m bf16"
+    rounds = []
+    for rec, fold in zip(run.rounds, folds):
+        say(f"{tag} round {rec.round_idx}: loss {rec.metrics['loss']:.4f}; train "
+            f"{rec.train_time_s:.3f} s, fold {rec.agg_time_s:.4f} s, eval {rec.eval_time_s:.3f} s; "
+            f"fold against the plain weighted mean (weights {fold['n_samples']}): max|diff| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in fold["max_abs_err"].items()))
+        rounds.append({"round": rec.round_idx, "loss": rec.metrics["loss"],
+                       "train_s": rec.train_time_s, "fold_s": rec.agg_time_s,
+                       "eval_s": rec.eval_time_s, "fold_max_abs_err": fold["max_abs_err"]})
+    want = dict.fromkeys(KERNELS, 0) | {k: 2 * v for k, v in per_round.items()}
+    say(f"{tag}: {SSM_SILOS} silos, {n_params:,} parameters, 2 rounds in {wall:.1f} s; launches "
+        f"{launches}; by round 1's fold {launches_after[0]}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    check(len(folds) == 2 and all(math.isfinite(r["loss"]) for r in rounds),
+          "two FedAvg rounds of mamba2-130m with finite losses")
+    # The hook runs after the fold and before the round's evaluation.
+    first_fold = dict.fromkeys(KERNELS, 0) | per_round | {
+        "ssd_chunk_scan": per_round["ssd_intra_chunk_bwd"]}
+    check(launches_after[0] == first_fold and launches == want,
+          f"a FedAvg round launches {per_round}, got {launches_after[0]} by round 1's fold, "
+          f"then {launches}")
+    del server, run, clients, params0, results
+    torch.cuda.empty_cache()
+    return {"rounds": rounds, "launches": launches, "wall_s": wall, "peak_bytes": peak,
+            "n_params": n_params}
+
+
 def main() -> int:
     import torch
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce  # noqa: F401 (fail early)
@@ -1895,10 +2339,12 @@ def main() -> int:
     flash_err = phase_flash_check()
     bwd_err = phase_flash_bwd_check()
     ssd_err = phase_ssd_check()
+    ssd_bwd_err = phase_ssd_bwd_check()
     timing = phase_kernel_timing()
     dq_timing = phase_dequant_timing()
     zoo_timing = phase_zoo_timing()
     bwd_timing = phase_flash_bwd_timing()
+    ssd_bwd_timing = phase_ssd_bwd_timing()
     fold = phase_fold_breakdown()
     compressed_split = phase_compressed_breakdown()
     build_root = ROOT / "build"
@@ -1913,6 +2359,8 @@ def main() -> int:
     train_step = phase_train_step()
     trainer = phase_trainer_entry()
     lora = phase_lora_rounds()
+    ssm_train = phase_ssm_train_step()
+    ssm_fedavg = phase_ssm_fedavg_rounds()
     train_reference = phase_train_reference_check()
 
     dq = dq_timing["int8"]
@@ -1973,6 +2421,19 @@ def main() -> int:
         "bound_by": bwd_timing["bound_by"],
         "library_ms": bwd_timing["library_ms"],
     })
+    kernels.append({
+        "name": "ssd_intra_chunk_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/mamba2.py:63",
+        "launches": ssm_train["launches"]["ssd_intra_chunk_bwd"],
+        "max_abs_err": ssd_bwd_err,
+        "ms": ssd_bwd_timing["ms"],
+        "plain_ms": ssd_bwd_timing["plain_ms"],
+        "bound_ms": ssd_bwd_timing["bound_ms"],
+        "bound_by": ssd_bwd_timing["bound_by"],
+        "library_ms": ssd_bwd_timing["library_ms"],
+    })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -1982,6 +2443,7 @@ def main() -> int:
         "compressed_reference": compressed_reference, "zoo_timing": zoo_timing, "zoo": zoo,
         "zoo_reference": zoo_reference, "flash_bwd_timing": bwd_timing,
         "train_step": train_step, "trainer": trainer, "lora": lora,
+        "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
         "train_reference": train_reference, "seconds": time.monotonic() - t_start,
     }, indent=1))
     say(f"[done] {time.monotonic() - t_start:.1f} s")

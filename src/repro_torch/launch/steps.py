@@ -7,11 +7,12 @@
   serve_step   — ONE new token against the KV / state cache.
 
 Training differentiates ``ModelFamily.loss`` with autograd.  On a card
-the attention's gradient is the hand-written backward kernel
-(``kernels/flash_attention.py``); the SSD scan has no backward kernel
-yet, so the ``ssm`` family trains on the CPU only.  Prefill and serving
-run without autograd (``torch.no_grad``), and the forward kernel then
-stores no log-sum-exp.
+the attention's gradient is the hand-written backward kernel in
+``kernels/flash_attention.py`` and the SSD scan's the one in
+``kernels/ssd_scan.py``, so the ``dense``, ``vlm`` and ``ssm`` families
+all train there.  Prefill and serving run without autograd
+(``torch.no_grad``), and the flash forward kernel then stores no
+log-sum-exp.
 """
 from __future__ import annotations
 

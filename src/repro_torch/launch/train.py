@@ -1,8 +1,8 @@
 """Single-program trainer, the port of ``repro/launch/train.py``: train
 any ported ``--arch`` on synthetic data.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
-      --steps 8 --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+      --steps 8 --batch 4 --seq 2048
 
 Runs on the card unless ``--device cpu`` is given (``--reduced`` is the
 per-arch smoke variant in fp32, the size for the CPU).  Weights are

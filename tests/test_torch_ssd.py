@@ -14,6 +14,12 @@ max|y| (about 25 here), so summing them in another order than XLA does
 leaves absolute errors in proportion to the largest terms, and an
 element that cancels to near 0 keeps that absolute error.
 
+The gradient: the intra-chunk part's backward (``_SSDIntraChunkFn``, its
+plain version on the CPU) composed with ``inter_chunk``'s autograd is held
+against ``jax.vjp`` of the reference's ``ssd_chunked`` (2e-5, scaled as
+above, each gradient by its own largest element), and the plain backward
+against autograd through ``ssd_intra_chunk_plain``.
+
 JAX is imported inside the parity tests only: the card tests run on a
 machine without it, with
 ``python -m pytest --noconftest -m gpu tests/test_torch_ssd.py``.
@@ -24,10 +30,13 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import (
+    _SSDIntraChunkFn,
     inter_chunk,
     ssd_chunk_scan,
     ssd_chunk_scan_plain,
     ssd_intra_chunk,
+    ssd_intra_chunk_bwd,
+    ssd_intra_chunk_bwd_plain,
     ssd_intra_chunk_plain,
 )
 from repro_torch.models.mamba2 import ssd_chunked, ssd_reference
@@ -265,15 +274,6 @@ def test_kernel_bf16_on_card(B, L, H, P, N, chunk):
     _close_t(h, h_want)
 
 
-@pytest.mark.gpu
-def test_kernel_refuses_grad_on_card():
-    _card()
-    x, dt, A, Bm, Cm = _torch(_inputs(1, 32, 2, 8, 8, seed=9), "cuda")
-    x.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=16)
-
-
 def test_intra_plain_and_inter_chunk_compose_to_the_scan():
     """The kernel's plain version (the Pallas kernel's three outputs) and
     the torch-side inter-chunk part together give ssd_chunked, with and
@@ -329,5 +329,235 @@ def test_kernel_alone_matches_its_plain_version_on_card(B, L, H, P, N, chunk, dt
     args = _torch(_inputs(B, L, H, P, N, seed=L), "cuda", dtype)
     got = ssd_intra_chunk(*args, chunk)
     want = ssd_intra_chunk_plain(*args, chunk)
+    for g, w in zip(got, want):
+        _close_t(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The gradient
+# ---------------------------------------------------------------------------
+
+GRAD_CASES = [
+    (2, 64, 4, 8, 16, 16, False),
+    (1, 96, 3, 8, 12, 32, True),     # an initial state, an odd H
+    (2, 60, 2, 4, 8, 20, True),      # a chunk of 20 positions
+    (1, 120, 4, 16, 32, 24, False),  # P and N wider, a chunk of 24
+]
+
+
+def _cotangents(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,init", GRAD_CASES)
+def test_grad_matches_jax_vjp(B, L, H, P, N, chunk, init):
+    """The intra-chunk backward (plain, on the CPU) composed with
+    inter_chunk's autograd gives jax.vjp's dx, ddt, dA, dB and dC of the
+    reference's ssd_chunked, for cotangents on y and the final state."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+
+    arrs = _inputs(B, L, H, P, N, seed=L + H)
+    gy, gh, h0 = _cotangents([(B, L, H, P), (B, H, P, N), (B, H, P, N)], seed=P)
+    h0 = h0 if init else None
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    y, h = inter_chunk(*_SSDIntraChunkFn.apply(*ts, chunk), ts[4],
+                       None if h0 is None else torch.from_numpy(h0), torch.float32)
+    got = torch.autograd.grad((y, h), ts, (torch.from_numpy(gy), torch.from_numpy(gh)))
+
+    def f(x, dt, A, Bm, Cm):
+        return jax_ssd_chunked(x, dt, A, Bm, Cm, chunk, None if h0 is None else jnp.asarray(h0))
+
+    (y_want, h_want), vjp = jax.vjp(f, *_jax(arrs))
+    _close(y.detach(), y_want)
+    _close(h.detach(), h_want)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                          vjp((jnp.asarray(gy), jnp.asarray(gh)))):
+        assert g.shape == w.shape, name
+        _close(g, w)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,init", GRAD_CASES)
+def test_bwd_plain_matches_autograd(B, L, H, P, N, chunk, init):
+    """The plain backward, written out in torch ops, equals autograd
+    through ssd_intra_chunk_plain for cotangents on all three outputs."""
+    del init
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in _inputs(B, L, H, P, N, seed=L)]
+    outs = ssd_intra_chunk_plain(*ts, chunk)
+    cots = [torch.from_numpy(c) for c in _cotangents([o.shape for o in outs], seed=H)]
+    want = torch.autograd.grad(outs, ts, cots)
+    got = ssd_intra_chunk_bwd(*(t.detach() for t in ts), outs[2].detach(), *cots)
+    for g, w, t in zip(got, want, ts):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close_t(g, w)
+
+
+def test_bwd_keeps_input_dtypes():
+    """bf16 x, B and C get bf16 gradients; dt and A fp32 ones."""
+    x, dt, A, Bm, Cm = _torch(_inputs(1, 32, 2, 8, 8, seed=7), dtype=torch.bfloat16)
+    outs = ssd_intra_chunk_plain(x, dt, A, Bm, Cm, 16)
+    got = ssd_intra_chunk_bwd(x, dt, A, Bm, Cm, outs[2], *(torch.ones_like(o) for o in outs))
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32, torch.float32,
+                                      torch.bfloat16, torch.bfloat16]
+
+
+def test_cpu_bwd_does_not_count_a_launch():
+    args = _torch(_inputs(1, 32, 2, 8, 8, seed=8))
+    outs = ssd_intra_chunk_plain(*args, 16)
+    before = ssd_intra_chunk_bwd.launches
+    ssd_intra_chunk_bwd(*args, outs[2], *(torch.ones_like(o) for o in outs))
+    assert ssd_intra_chunk_bwd.launches == before
+
+
+@pytest.mark.parametrize("bad", ["a_cs", "dy", "dstates", "da_cs"])
+def test_bwd_rejects_mismatched_cotangents(bad):
+    args = _torch(_inputs(1, 32, 2, 8, 8, seed=10))
+    outs = list(ssd_intra_chunk_plain(*args, 16))
+    saved = {"a_cs": outs[2], "dy": outs[0], "dstates": outs[1], "da_cs": outs[2]}
+    saved[bad] = saved[bad][..., :-1]
+    with pytest.raises(ValueError, match=bad):
+        ssd_intra_chunk_bwd(*args, saved["a_cs"], saved["dy"], saved["dstates"], saved["da_cs"])
+
+
+def test_function_gradient_of_one_output_matches_autograd():
+    """A caller that uses y_diag alone gets the same gradient as autograd
+    through the plain version (the unused outputs' cotangents arrive as
+    zeros)."""
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in _inputs(1, 64, 2, 8, 8, seed=13)]
+    cot = torch.from_numpy(_cotangents([(1, 4, 2, 16, 8)], seed=1)[0])
+    got = torch.autograd.grad(_SSDIntraChunkFn.apply(*ts, 16)[0], ts, cot)
+    want = torch.autograd.grad(ssd_intra_chunk_plain(*ts, 16)[0], ts, cot)
+    for g, w in zip(got, want):
+        _close_t(g, w)
+
+
+def _bwd_case(B, L, H, P, N, chunk, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args = _torch(_inputs(B, L, H, P, N, seed=seed), "cuda", dtype)
+    a_cs = ssd_intra_chunk(*args, chunk)[2]
+    n = L // chunk
+    cots = [torch.randn(s, generator=gen, device="cuda")
+            for s in ((B, n, H, chunk, P), (B, n, H, P, N), (B, n, H, chunk))]
+    return args, a_cs, cots
+
+
+BWD_CARD_CASES = [(2, 64, 4, 16, 32, 16), (2, 256, 8, 64, 128, 64), (1, 200, 4, 32, 16, 100),
+                  (1, 192, 6, 64, 128, 96), (2, 300, 5, 16, 36, 150), (1, 512, 3, 64, 128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,P,N,chunk", BWD_CARD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain_on_card(B, L, H, P, N, chunk, dtype):
+    """Card only: the backward kernel against its plain version computed in
+    fp32 from the same inputs, one launch counted.  fp32: within 2e-5 of
+    each gradient's scale; bf16 (dx, dB and dC come back in bf16):
+    relative L2 <= 1e-2 per gradient."""
+    _card()
+    args, a_cs, cots = _bwd_case(B, L, H, P, N, chunk, dtype, seed=L + H)
+    before = ssd_intra_chunk_bwd.launches
+    got = ssd_intra_chunk_bwd(*args, a_cs, *cots)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_bwd.launches == before + 1
+    want = ssd_intra_chunk_bwd_plain(*(t.float() for t in args), a_cs, *cots)
+    for g, w, t in zip(got, want, args):
+        assert g.dtype == t.dtype and g.shape == t.shape and bool(torch.isfinite(g).all())
+        if dtype == torch.float32:
+            _close_t(g, w)
+        else:
+            assert ((g.float() - w).norm() / w.norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_deterministic_on_card(dtype):
+    """One writer per output and no atomics: a second launch is bit-equal."""
+    _card()
+    args, a_cs, cots = _bwd_case(2, 300, 5, 16, 36, 150, dtype, seed=3)
+    first = ssd_intra_chunk_bwd(*args, a_cs, *cots)
+    second = ssd_intra_chunk_bwd(*args, a_cs, *cots)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["P", "N", "dtype", "mixed"])
+def test_bwd_kernel_refuses_before_any_launch_on_card(bad):
+    _card()
+    shape = {"P": (1, 64, 2, 68, 16), "N": (1, 64, 2, 16, 132)}.get(bad, (1, 64, 2, 16, 16))
+    args = list(_torch(_inputs(*shape, seed=4), "cuda"))
+    if bad == "dtype":
+        args = [t.half() if i in (0, 3, 4) else t for i, t in enumerate(args)]
+    elif bad == "mixed":
+        args[3] = args[3].bfloat16()
+    n = 64 // 16
+    B, L, H, P = args[0].shape
+    N = args[3].shape[-1]
+    z = torch.zeros
+    before = (ssd_intra_chunk_bwd.launches, ssd_chunk_scan.launches)
+    with pytest.raises((TypeError, ValueError)):
+        ssd_intra_chunk_bwd(*args, z((B, n, H, 16), device="cuda"), z((B, n, H, 16, P), device="cuda"),
+                            z((B, n, H, P, N), device="cuda"), z((B, n, H, 16), device="cuda"))
+    assert (ssd_intra_chunk_bwd.launches, ssd_chunk_scan.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("init", [False, True])
+def test_scan_gradient_on_card_matches_cpu(init):
+    """Card only: ssd_chunk_scan on CUDA inputs that need a gradient goes
+    through the forward and backward kernels (one launch each) and gives the
+    CPU's autograd gradient of ssd_chunked within 2e-5 of each scale."""
+    _card()
+    arrs = _inputs(2, 300, 5, 16, 36, seed=21)
+    gy, gh, h0 = _cotangents([(2, 300, 5, 16), (2, 5, 16, 36), (2, 5, 16, 36)], seed=22)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        ts = [torch.from_numpy(a).to(device).requires_grad_(True) for a in arrs]
+        before = (ssd_chunk_scan.launches, ssd_intra_chunk_bwd.launches)
+        y, h = ssd_chunk_scan(*ts, chunk=150,
+                              initial_state=torch.from_numpy(h0).to(device) if init else None)
+        g = torch.autograd.grad((y, h), ts, (torch.from_numpy(gy).to(device),
+                                             torch.from_numpy(gh).to(device)))
+        after = (ssd_chunk_scan.launches, ssd_intra_chunk_bwd.launches)
+        assert after == ((before[0] + 1, before[1] + 1) if device == "cuda" else before)
+        grads[device] = [t.cpu() for t in g]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        _close_t(g, w)
+
+
+def test_inter_chunk_backward_stacks_chunk_gradients_once():
+    """inter_chunk walks the chunks by unbind: no node of its backward
+    takes a slice of the whole states tensor (an index's backward would
+    fill a states-sized zero tensor a chunk and add them all), and its
+    gradient equals the indexing loop's."""
+    x, dt, A, Bm, Cm = _torch(_inputs(1, 128, 2, 8, 8, seed=14))
+    y_diag, states, a_cs = (t.requires_grad_(True) for t in ssd_intra_chunk_plain(
+        x, dt, A, Bm, Cm, 16))
+    y, h = inter_chunk(y_diag, states, a_cs, Cm, None, torch.float32)
+    seen, todo, sizes = set(), [y.grad_fn, h.grad_fn], []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "SelectBackward0":
+            sizes.append(tuple(node._saved_self_sym_sizes))
+        todo += [f for f, _ in node.next_functions]
+    assert tuple(states.shape) not in sizes
+    cots = [torch.ones_like(y), torch.ones_like(h)]
+    got = torch.autograd.grad((y, h), (states, a_cs), cots)
+
+    def indexing_loop(states, a_cs):
+        h = torch.zeros_like(states[:, 0])
+        h_prevs = []
+        for c in range(states.shape[1]):
+            h_prevs.append(h)
+            h = h * torch.exp(a_cs[:, c, :, -1])[:, :, None, None] + states[:, c]
+        y_off = torch.einsum("bcln,bchpn,bchl->bchlp", Cm.reshape(1, 8, 16, 8),
+                             torch.stack(h_prevs, dim=1), torch.exp(a_cs))
+        return (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(1, 128, 2, 8), h
+
+    want = torch.autograd.grad(indexing_loop(states, a_cs), (states, a_cs), cots)
     for g, w in zip(got, want):
         _close_t(g, w)

@@ -126,3 +126,53 @@ def test_trainer_exit_code_matches_reference(arch, capsys):
     out = capsys.readouterr().out
     assert f"arch={arch}-reduced" in out and "device=cpu" in out and "done: loss" in out
     assert rc == jax_train.main(argv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m"])
+def test_train_step_on_card_matches_cpu(arch):
+    """Card only: one reduced fp32 train step on the card (the forward and
+    backward kernels, one launch each a layer) against the same step on the
+    CPU from the same weights: loss within 1e-4 relative and every leaf's
+    gradient within 1e-4 relative L2; the updated parameters within 1e-4
+    relative L2, leaf by leaf for olmo-1b and as one vector for
+    mamba2-130m.  AdamW's first step moves an element by about lr whatever
+    its gradient's size, so an element whose gradient is near AdamW's eps
+    moves by an amount the gradient's last bits decide; mamba2's ``conv_b``
+    starts at zero, so such elements are a visible share of its norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_intra_chunk_bwd
+    from repro_torch.utils.tree import tree_map, tree_unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced().with_overrides(dtype="float32", param_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(5), "cpu")
+    seq = 2 * cfg.ssm_chunk if cfg.arch_type == "ssm" else 64
+    _, batch = _batch(cfg, 2, seq, seed=1)
+    bwd = ssd_intra_chunk_bwd if cfg.arch_type == "ssm" else flash_attention_bwd
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), params)
+        b = tree_map(lambda t: t.to(device), batch)
+        leaves, treedef = tree_flatten(p)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        grads = torch.autograd.grad(model.loss(tree_unflatten(treedef, live), b), live)
+        opt = make_optimizer_for(cfg)
+        before = bwd.launches
+        new, _, loss = make_train_step(model, opt)(p, opt.init(p), b)
+        runs[device] = ([t.cpu() for t in tree_flatten(new)[0]], [g.cpu() for g in grads],
+                        float(loss), bwd.launches - before)
+    (got, got_g, got_loss, got_n), (want, want_g, want_loss, want_n) = runs["cuda"], runs["cpu"]
+    assert (got_n, want_n) == (cfg.n_layers, 0)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
+    for a, b in zip(got_g, want_g):
+        assert _rel_l2(a.numpy(), b.numpy()) <= 1e-4
+    if arch == "olmo-1b":
+        for a, b in zip(got, want):
+            assert _rel_l2(a.numpy(), b.numpy()) <= 1e-4
+    else:
+        assert _rel_l2(torch.cat([t.reshape(-1) for t in got]).numpy(),
+                       torch.cat([t.reshape(-1) for t in want]).numpy()) <= 1e-4
