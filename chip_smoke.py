@@ -11,9 +11,10 @@ or of the JAX package.  In order it:
   2. builds every kernel of the port's paths from ``src/repro_torch/
      kernels/csrc`` with nvcc (one process per source, all started
      together), prints ptxas's registers, spills and shared memory per
-     kernel (the flash backward's wgmma kernels must not spill) and, where
-     ``cuobjdump`` is found, the count of wgmma (HGMMA), TMA load (UTMALDG)
-     and mma.sync (HMMA) instructions in each library's SASS;
+     kernel (the flash backward's wgmma kernels and the SSD backward's
+     kernels must not spill) and, where ``cuobjdump`` is found, the count
+     of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions
+     in each library's SASS;
   3. holds each kernel against its plain PyTorch version on the card, over
      the CPU tests' sweeps and at the paths' shapes (``dequant_fold`` bit
      for bit, on aligned and misaligned payloads; ``flash_attention`` over
@@ -70,9 +71,11 @@ or of the JAX package.  In order it:
      (phase 3: fp32 and bf16, ragged chunks, P and N below their maxima,
      odd H, a relaunch bit-equal, the whole scan's gradient from an
      initial state, refused inputs with no launch), timed beside the
-     forward kernel (phase 4, with each of its three kernels' device
-     time), five timed ``make_train_step`` steps and one traced, each with
-     24 forward and 24 backward launches, and ``python -m
+     forward kernel (phase 4, before any phase that traces: both again
+     behind a sleep kernel for their device spans, so the host share of a
+     call is its time less its span; each of its three kernels' device
+     time, its scratch, and its bounds at 3xTF32 and as fp32 FMAs), five timed ``make_train_step`` steps and one
+     traced, each with 24 forward and 24 backward launches, and ``python -m
      repro_torch.launch.train --arch mamba2-130m`` in its own process
      (exit 0);
  13. runs 2 FedAvg rounds (``FLServer``) of 2 mamba2-130m silos at full
@@ -107,10 +110,12 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12   # H100 SXM tf32 tensor cores, dense
 PAPER_L = 164_187_070       # FemnistConfig() parameter count
 N_SILOS = 4
 TIMING_ROUNDS = 4       # rounds of kernel / plain / library, order alternating
 TIMED_PER_ROUND = 10    # launches of each per round: 40 samples each
+QUEUE_CYCLES = 2_000_000   # a ~1 ms sleep kernel at the H100's ~1.98 GHz, held ahead of a call
 PREFILL_RUNS = 5        # timed full-width prefills a model, after one warm-up
 PREFILL_B, PREFILL_S = 4, 2048   # the zoo's full-width prefill batch
 KERNELS = ("fedavg_reduce", "dequant_fold", "flash_attention", "flash_attention_bwd",
@@ -131,8 +136,12 @@ def say(*parts: object) -> None:
     print(*parts, flush=True)
 
 
-def cuda_times(fn, n: int) -> list:
-    """Device times (ms) of ``n`` calls of ``fn``, each between CUDA events."""
+def cuda_times(fn, n: int, queued: bool = False) -> list:
+    """Device times (ms) of ``n`` calls of ``fn``, each between CUDA events.
+    A call's time counts its host work before its first launch, during
+    which the card waits.  ``queued``: a ~1 ms sleep kernel goes ahead of
+    each call's start event, so the host has enqueued the whole call before
+    the card reaches that event, and the events time its device span alone."""
     import torch
 
     torch.cuda.synchronize()
@@ -140,6 +149,8 @@ def cuda_times(fn, n: int) -> list:
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -160,17 +171,18 @@ def quartiles(xs) -> tuple:
     return q1, statistics.median(xs), q3
 
 
-def alternating(fns: dict) -> tuple:
+def alternating(fns: dict, queued: tuple = ()) -> tuple:
     """Quartiles (ms) of each of ``fns`` over TIMING_ROUNDS rounds of
     TIMED_PER_ROUND launches, in alternating order, after 5 warm-up calls
-    of each; also the sample count."""
+    of each; also the sample count.  The names in ``queued`` are timed
+    behind a sleep kernel (``cuda_times``): their device span alone."""
     for fn in fns.values():
         for _ in range(5):
             fn()
     samples = {k: [] for k in fns}
     for r in range(TIMING_ROUNDS):
         for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            samples[k] += cuda_times(fns[k], TIMED_PER_ROUND)
+            samples[k] += cuda_times(fns[k], TIMED_PER_ROUND, k in queued)
     return {k: quartiles(v) for k, v in samples.items()}, len(samples[next(iter(fns))])
 
 
@@ -259,12 +271,27 @@ def phase_build():
             if "Compiling entry" in line:
                 entry = line.split("'")[1]
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and name == "flash_attention_bwd" and "wgmma" in entry:
-                spills[entry] = int(m.group(1)) + int(m.group(2))
-    say(f"[build] flash_attention_bwd wgmma kernels, spilled bytes: {spills}")
-    check(len(spills) == 4 and not any(spills.values()),
+            if m and (name == "ssd_scan_bwd"
+                      or (name == "flash_attention_bwd" and "wgmma" in entry)):
+                spills[f"{name}:{entry}"] = int(m.group(1)) + int(m.group(2))
+    flash = {k: v for k, v in spills.items() if k.startswith("flash")}
+    ssd = {_kernel_name(k): v for k, v in spills.items() if k.startswith("ssd")}
+    say(f"[build] flash_attention_bwd wgmma kernels, spilled bytes: {flash}")
+    say(f"[build] ssd_scan_bwd kernels, spilled bytes: {ssd}")
+    check(len(flash) == 4 and not any(flash.values()),
           "the flash backward's four wgmma kernels (dK/dV and dQ at D 64 and 128) do not spill")
+    check(len(ssd) == 5 and not any(ssd.values()),
+          "the SSD backward's kernels (bwd_heads, bwd_chunk at fp32 and bf16, bwd_dA) do not spill")
     return sass_counts(libs), ptxas
+
+
+def _kernel_name(mangled: str) -> str:
+    """``bwd_heads<bf16>`` (or ``bwd_dA``) for a mangled entry of the SSD
+    backward, the name itself otherwise."""
+    m = re.search(r"\d(bwd_[A-Za-z]+?)(I13__nv_bfloat16E|IfE|E)", mangled)
+    if not m:
+        return mangled
+    return m.group(1) + {"E": "", "IfE": "<fp32>"}.get(m.group(2), "<bf16>")
 
 
 def sass_counts(libs: dict) -> dict:
@@ -272,7 +299,8 @@ def sass_counts(libs: dict) -> dict:
     SASS (``cuobjdump -sass``), where ``cuobjdump`` is found: the bf16
     flash kernels, forward and backward, must issue wgmma (HGMMA) and TMA
     loads (UTMALDG), the backward no mma.sync (HMMA) at all, the scan its
-    bf16 scores on mma.sync."""
+    bf16 scores on mma.sync, the scan's backward its products on the tensor
+    cores (HMMA or HGMMA)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -288,6 +316,8 @@ def sass_counts(libs: dict) -> dict:
     check(out["flash_attention"]["HGMMA"] > 0 and out["flash_attention"]["UTMALDG"] > 0,
           "the flash library issues wgmma and TMA loads")
     check(out["ssd_scan"]["HMMA"] > 0, "the scan library forms bf16 scores on the tensor cores")
+    check(out["ssd_scan_bwd"]["HMMA"] + out["ssd_scan_bwd"]["HGMMA"] > 0,
+          "the scan backward library runs its products on the tensor cores")
     check(out["flash_attention_bwd"]["HGMMA"] > 0 and out["flash_attention_bwd"]["UTMALDG"] > 0
           and out["flash_attention_bwd"]["HMMA"] == 0,
           "the flash backward library issues wgmma and TMA loads, and no mma.sync")
@@ -1956,8 +1986,9 @@ def phase_ssd_bwd_check():
     same N(0, 1) cotangents): mamba2-130m's (4, 2048, 24, 64, N 128, chunk
     256) in bf16 (the main path's call) and fp32, P and N below their
     maxima, chunks of 96, 100, 150 and 160 positions (not multiples of the
-    kernel's 64-position tiles), H of 5 and 7 (not multiples of its pair of
-    heads), and N of 36 (not a multiple of 16).  fp32: within 2e-5 of each
+    kernel's 64-position tiles), H of 5 and 7 (not multiples of its group
+    of 3 heads: clusters of 2 and 3 groups, the last one short), and N of
+    36 (not a multiple of 16).  fp32: within 2e-5 of each
     gradient's max(1, max|plain|); bf16 (dx, dB and dC come back in bf16):
     relative L2 <= 1e-2 per gradient.  At mamba2-130m's shape a second
     launch must be bit-equal.  Then the whole scan's gradient through the
@@ -2075,19 +2106,30 @@ def phase_ssd_bwd_timing():
     """The SSD backward alone at mamba2-130m's train step (x (4, 2048, 24,
     64), B and C (4, 2048, 128) bf16, chunk 256, fp32 cotangents): the
     kernel, its plain version and the forward kernel in the same
-    ``alternating()`` rounds, beside the backward's bound, and each of its
-    three kernels' device time from ``torch.profiler``.
+    ``alternating()`` rounds, and the kernel and the forward again behind a
+    sleep kernel, which times their device spans; beside the backward's
+    bounds.  A timed call less its device span is its host share.
+    ``main`` runs this phase before any phase that traces, since a
+    ``torch.profiler`` session slows the later torch calls of its process.
+    Then the time a call takes to return, each of the backward's kernels'
+    device time from ``torch.profiler`` (grouped by kernel name) and the
+    scratch it takes.
 
     The needed work, counted where the decay is not zero (s <= l) as the
-    forward's bound is: per (b, chunk, head) dM = dy xdtᵀ and Mᵀ dy,
-    Q·(Q+1)·P each, and R = B dstᵀ and the states' term of dB, 2·Q·N·P each;
-    per (b, chunk) dC and dGᵀ C, Q·(Q+1)·N each, and G = C Bᵀ again,
-    Q·(Q+1)·N; all fp32, at 67 TFLOP/s.  The bytes are x, B, C (bf16), dt,
-    a_cs and the three cotangents read once, and dx, dB, dC (bf16), ddt and
-    dA written once.  No single PyTorch call computes it."""
+    forward's bound is, with the passes of 3xTF32 products on the tensor
+    cores that the function needs: per (b, chunk, head) dM = dt∘(dy xᵀ)
+    Q·(Q+1)·P in 2 passes (x is bf16, exact in TF32, and dt depends on s
+    alone) and Mᵀ dy Q·(Q+1)·P in 3, R = B dstᵀ and the states' term of dB,
+    (dt decay)∘(x dst), 2·Q·N·P each in 2; per (b, chunk) dC and dGᵀ C,
+    Q·(Q+1)·N each in 2; at 495 TFLOP/s of TF32 (G = C Bᵀ on bf16 tensor
+    cores, 0.27 GFLOP, is left out).  The same products as fp32 FMAs (one
+    pass each, and G) at 67 TFLOP/s are printed beside it.  The bytes are
+    x, B, C (bf16), dt, a_cs and the three cotangents read once, and dx,
+    dB, dC (bf16), ddt and dA written once.  No single PyTorch call
+    computes it."""
     import torch
     from repro_torch.kernels.ssd_scan import (
-        _launch, ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_plain)
+        _bwd_kernel_fn, _launch, ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     B, L, H, P, N, Q = SSM_B, PREFILL_S, 24, 64, 128, 256
@@ -2095,32 +2137,66 @@ def phase_ssd_bwd_timing():
     args = _ssd_inputs(B, L, H, P, N, torch.bfloat16, gen)
     a_cs = _launch(*args, Q)[2]
     cots = _ssd_cotangents(B, L, H, P, N, Q, gen)
-    q4, n = alternating({
-        "kernel": lambda: ssd_intra_chunk_bwd(*args, a_cs, *cots),
-        "plain": lambda: ssd_intra_chunk_bwd_plain(*args, a_cs, *cots),
-        "forward": lambda: _launch(*args, Q),
-    })
-    flops = B * C * H * (2 * Q * (Q + 1) * P + 4 * Q * N * P) + B * C * 3 * Q * (Q + 1) * N
+
+    def kernel():
+        ssd_intra_chunk_bwd(*args, a_cs, *cots)
+
+    def forward():
+        _launch(*args, Q)
+
+    q4, n = alternating({"kernel": kernel,
+                         "plain": lambda: ssd_intra_chunk_bwd_plain(*args, a_cs, *cots),
+                         "forward": forward, "kernel_span": kernel, "forward_span": forward},
+                        queued=("kernel_span", "forward_span"))
+    mm, pairs = Q * (Q + 1), 2 * Q * N * P
+    flops = B * C * H * (5 * mm * P + 4 * pairs) + B * C * 4 * mm * N
+    fp32_flops = B * C * H * (2 * mm * P + 2 * pairs) + B * C * 3 * mm * N
     nbytes = (2 * B * L * H * P * 2 + 4 * B * L * N * 2 + 2 * B * L * H * 4 + H * 4
               + B * C * H * (2 * Q + Q * P + P * N) * 4)
-    row = _bound_row(q4, n, flops, FP32_FLOPS_PER_S, nbytes,
+    row = _bound_row(q4, n, flops, TF32_FLOPS_PER_S, nbytes,
                      "ssd_intra_chunk_bwd mamba2-130m train step (4, 2048, 24, 64), N 128, "
-                     "chunk 256, bf16", None)
-    fwd = q4["forward"]
+                     "chunk 256, bf16, 3xTF32 tensor-core passes", None)
+    row["fp32_bound_ms"] = fp32_flops / FP32_FLOPS_PER_S * 1e3
+    say(f"[time] ssd_intra_chunk_bwd: the same products as fp32 FMAs, {fp32_flops / 1e9:.2f} GFLOP "
+        f"at 67 TFLOP/s = {row['fp32_bound_ms']:.4f} ms; the kernel at "
+        f"{row['fp32_bound_ms'] / row['ms']:.1%} of that bound")
+    fwd, span, fspan = q4["forward"], q4["kernel_span"], q4["forward_span"]
     row["forward_ms"], row["forward_quartiles_ms"] = fwd[1], fwd
+    row["device_span_ms"], row["forward_span_ms"] = span[1], fspan[1]
+    row["host_ms"] = row["ms"] - span[1]
     say(f"[time] ssd_chunk_scan forward kernel alone in the same rounds: median {fwd[1]:.4f} ms "
         f"(quartiles {fwd[0]:.4f}-{fwd[2]:.4f}); the backward is {row['ms'] / fwd[1]:.2f}x it")
-    dev = _device_ms(lambda: ssd_intra_chunk_bwd(*args, a_cs, *cots))
-    split = {name: sum(t for k, t in dev.items() if name in k)
-             for name in ("bwd_scores", "bwd_heads", "bwd_chunk")}
+    say(f"[time] device spans in the same rounds (behind a sleep kernel): backward median "
+        f"{span[1]:.4f} ms (quartiles {span[0]:.4f}-{span[2]:.4f}), forward {fspan[1]:.4f} ms "
+        f"({fspan[0]:.4f}-{fspan[2]:.4f}): {span[1] / fspan[1]:.2f}x; the backward's host share "
+        f"{row['host_ms']:.4f} ms of its timed call (the earlier fp32-FMA kernel's wrapper: "
+        f"~0.18 ms), the forward's {fwd[1] - fspan[1]:.4f} ms")
+    torch.cuda.synchronize()
+    enqueue = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        kernel()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    row["enqueue_ms"] = statistics.median(enqueue)
+    say(f"[time] ssd_intra_chunk_bwd: a call returns {row['enqueue_ms']:.4f} ms after it starts "
+        f"(median of 20 back to back, no synchronize): the wrapper's host work and the launches")
+    dev = _device_ms(kernel)
+    split: dict = {}
+    for name, t in dev.items():
+        m = re.search(r"::(\w+)[<(]", name)
+        key = m.group(1) if m else name[:40]
+        split[key] = split.get(key, 0.0) + t
     row["device_ms_by_kernel"], row["device_ms"] = split, sum(dev.values())
+    row["scratch_bytes"] = 4 * _bwd_kernel_fn()[1](B, L, H, P, N, Q, 1)
     if not dev:
         say("[time] ssd_intra_chunk_bwd: the profiler recorded no device time")
     else:
         say(f"[time] ssd_intra_chunk_bwd device time a call by kernel (torch.profiler, 5 calls): "
             + ", ".join(f"{k} {t:.4f} ms" for k, t in split.items())
-            + f"; all device work {sum(dev.values()):.4f} ms (with dA's torch sum) against the "
-            f"{row['ms']:.4f} ms timed call")
+            + f"; {row['device_ms']:.4f} ms in all")
+    say(f"[time] ssd_intra_chunk_bwd scratch a call: {row['scratch_bytes'] / 1e6:.1f} MB "
+        f"(the earlier fp32-FMA kernel's layout: 159 MB)")
     del args, a_cs, cots
     torch.cuda.empty_cache()
     return row
@@ -2343,8 +2419,8 @@ def main() -> int:
     timing = phase_kernel_timing()
     dq_timing = phase_dequant_timing()
     zoo_timing = phase_zoo_timing()
+    ssd_bwd_timing = phase_ssd_bwd_timing()   # before any phase that traces
     bwd_timing = phase_flash_bwd_timing()
-    ssd_bwd_timing = phase_ssd_bwd_timing()
     fold = phase_fold_breakdown()
     compressed_split = phase_compressed_breakdown()
     build_root = ROOT / "build"

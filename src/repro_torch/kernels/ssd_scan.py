@@ -33,7 +33,9 @@ strides do not allow that.
 The reference has no backward kernel: JAX differentiates ``ssd_chunked``.
 Here a CUDA input that needs a gradient goes through
 :class:`_SSDIntraChunkFn`, whose backward is the hand-written kernel in
-``csrc/ssd_scan_bwd.cu`` (:func:`ssd_intra_chunk_bwd`); ``inter_chunk``
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_intra_chunk_bwd`: its products on the
+tensor cores in 3xTF32, the heads' partial sums added across a thread-block
+cluster, dA summed on the card); ``inter_chunk``
 keeps torch autograd, as the reference keeps it in XLA.  Its plain
 version, :func:`ssd_intra_chunk_bwd_plain`, writes the gradient out in
 torch ops; the CPU path and the tests use it.
@@ -339,7 +341,7 @@ def _bwd_kernel_fn():
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         size = lib.ssd_scan_bwd_scratch_floats
-        size.argtypes = [ctypes.c_int] * 6
+        size.argtypes = [ctypes.c_int] * 7
         size.restype = ctypes.c_int64
     return fn, lib.ssd_scan_bwd_scratch_floats
 
@@ -350,8 +352,8 @@ def ssd_intra_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """(dx, ddt, dA, dB, dC) of the intra-chunk part, each in its input's
     dtype and shape, given the forward's inputs, its a_cs and the three
     outputs' gradients.  A CUDA call launches the backward kernel (its three
-    kernels in order on the current stream, one launch counted; dA is a
-    torch sum of its per-chunk partials); a CPU call computes
+    kernels in order on the current stream, one launch counted, nothing
+    after it: dA too is summed on the card); a CPU call computes
     :func:`ssd_intra_chunk_bwd_plain`."""
     if a_cs.dim() != 4 or x.dim() != 4 or x.shape[1] % a_cs.shape[-1]:
         raise ValueError(f"a_cs {tuple(a_cs.shape)} must be (B, C, H, Q) with Q dividing the "
@@ -378,11 +380,12 @@ def ssd_intra_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dev = x.device
     dx = torch.empty((Bsz, L, H, P), dtype=x.dtype, device=dev)
     ddt = torch.empty((Bsz, L, H), dtype=torch.float32, device=dev)
-    dA = torch.empty((Bsz, n, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
     dB = torch.empty((Bsz, L, N), dtype=B_mat.dtype, device=dev)
     dC = torch.empty((Bsz, L, N), dtype=C_mat.dtype, device=dev)
     fn, scratch_floats = _bwd_kernel_fn()
-    scratch = torch.empty(max(1, scratch_floats(Bsz, L, H, P, N, Q)), dtype=torch.float32,
+    code = _DTYPE_CODES[x.dtype]
+    scratch = torch.empty(max(1, scratch_floats(Bsz, L, H, P, N, Q, code)), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -395,11 +398,11 @@ def ssd_intra_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  dt.stride(0), dt.stride(1), dt.stride(2),
                  B_mat.stride(0), B_mat.stride(1), C_mat.stride(0), C_mat.stride(1),
                  *dy.stride()[:4],
-                 _DTYPE_CODES[x.dtype], stream)
+                 code, stream)
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk_bwd kernel launch failed: CUDA error {err}")
     ssd_intra_chunk_bwd.launches += 1
-    return dx, ddt, dA.sum((0, 1)), dB, dC
+    return dx, ddt, dA, dB, dC
 
 
 # Backward launches since the count was last set to 0 (one a call, for all

@@ -433,6 +433,113 @@ def test_function_gradient_of_one_output_matches_autograd():
         _close_t(g, w)
 
 
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit masks: what ``cvt.rna.tf32.f32`` gives a finite value."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, split_a=True, split_b=True):
+    """The backward kernel's 3xTF32 product: each fp32 operand split into
+    big = tf32(a) and small = tf32(a - big) (an operand that is exact in
+    TF32, bf16-valued B or C, is not split); big . big in one accumulator,
+    the small terms small(a) . big(b) and big(a) . small(b) in another,
+    added to the first last."""
+    ab, bb = (_tf32(a) if split_a else a), (_tf32(b) if split_b else b)
+    small = torch.zeros(())
+    if split_a:
+        small = small + _tf32(a - ab) @ bb
+    if split_b:
+        small = small + ab @ _tf32(b - bb)
+    return ab @ bb + small
+
+
+def _mm_tf32(a, b, split_a=True, split_b=True):
+    """One TF32 pass: both operands rounded to TF32."""
+    return (_tf32(a) if split_a else a) @ (_tf32(b) if split_b else b)
+
+
+def _mm_exact(a, b, split_a=True, split_b=True):
+    del split_a, split_b
+    return a @ b
+
+
+def _bwd_products(x, dt, A, Bm, Cm, a_cs, dy, dst, da, mm, dtype):
+    """The plain backward's formula (ssd_intra_chunk_bwd_plain) in `dtype`,
+    with every product the kernel runs on the tensor cores taken by `mm`
+    (a product with B or C, or with bf16-valued x, marks that operand
+    exact), grouped as the kernel groups them: dt and the decay, which
+    depend on s alone, applied after the products with x (dM = dt o (dy
+    x^T), the states' term of dB summed over heads as (dt decay) o (x dst),
+    u = dt o rowsum(x o decay o R)), dxdt = decay o R + M^T dy, G = C B^T
+    exact (bf16-valued B and C: the kernel's bf16 products are exact)."""
+    Bsz, L, H, P = x.shape
+    N, Q = Bm.shape[-1], a_cs.shape[-1]
+    n = L // Q
+    x, dt, A, Bm, Cm, a, dy, dst, da = (t.to(dtype) for t in (x, dt, A, Bm, Cm, a_cs, dy, dst, da))
+    xc = x.reshape(Bsz, n, Q, H, P).permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(Bsz, n, Q, H).permute(0, 1, 3, 2)
+    Bc, Cc = Bm.reshape(Bsz, n, Q, N), Cm.reshape(Bsz, n, Q, N)
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    diff = (a[..., :, None] - a[..., None, :]).masked_fill(~tril, 0.0)
+    Lm = torch.exp(diff).masked_fill(~tril, 0.0)
+    M = Lm * (Cc @ Bc.transpose(-1, -2))[:, :, None]
+    decay = torch.exp(a[..., -1:] - a)
+    dM = (mm(dy, xc.transpose(-1, -2), split_b=False) * dtc[..., None, :]).masked_fill(~tril, 0.0)
+    R = mm(Bc[:, :, None].expand(-1, -1, H, -1, -1), dst.transpose(-1, -2), split_a=False)
+    dxdt = decay[..., None] * R + mm(M.transpose(-1, -2), dy)
+    dG = (dM * Lm).sum(2)
+    dC = mm(dG, Bc, split_b=False)
+    dB = ((dtc * decay)[..., None] * mm(xc, dst, split_a=False)).sum(2) + mm(
+        dG.transpose(-1, -2), Cc, split_b=False)
+    dT = dM * M
+    u = dtc * (xc * (decay[..., None] * R)).sum(-1)
+    d_acs = da + dT.sum(-1) - dT.sum(-2) - u
+    d_acs[..., -1] += u.sum(-1)
+    dav = d_acs.flip(-1).cumsum(-1).flip(-1)
+    ddt = dav * A[:, None] + (dxdt * xc).sum(-1)
+    dA = (dav * dtc).sum((0, 1, 3))
+    dx = dxdt * dtc[..., None]
+    return (dx.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P),
+            ddt.permute(0, 1, 3, 2).reshape(Bsz, L, H), dA, dB.reshape(Bsz, L, N),
+            dC.reshape(Bsz, L, N))
+
+
+def test_bwd_3xtf32_products_hold_the_tolerance():
+    """The backward kernel runs every product on the tensor cores in
+    3xTF32 (csrc/ssd_scan_bwd.cu).  Emulated here with TF32 rounding by bit
+    masks, the same big/small split and grouping, at a chunk of 256 with
+    bf16-valued x, B and C, dx, ddt, dA, dB and dC hold 2e-5 of max(1,
+    max|ref|) against an fp64 evaluation of the same formula (the worst,
+    dA, at 6.1e-6; fp32 products give 9.0e-6 there).  A single TF32 pass
+    (both operands rounded once) errs by 1.2e-4 to 4.3e-4 of scale there,
+    6 to 21 times the tolerance, which is why the kernel does not take it;
+    bf16 operands would round the fp32 cotangents as well.  The formula
+    itself is checked against ssd_intra_chunk_bwd_plain first."""
+    B, L, H, P, N, Q = 1, 512, 4, 64, 128, 256
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in _inputs(B, L, H, P, N, seed=31))
+    x, Bm, Cm = (t.bfloat16().float() for t in (x, Bm, Cm))
+    n = L // Q
+    a_cs = torch.cumsum((dt.double() * A.double()).reshape(B, n, Q, H).permute(0, 1, 3, 2),
+                        -1).float()
+    dy, dst, da = (torch.from_numpy(c) for c in _cotangents(
+        [(B, n, H, Q, P), (B, n, H, P, N), (B, n, H, Q)], seed=32))
+    args = (x, dt, A, Bm, Cm, a_cs, dy, dst, da)
+    plain = ssd_intra_chunk_bwd_plain(*args)
+    for g, w in zip(_bwd_products(*args, _mm_exact, torch.float32), plain):
+        _close_t(g, w)
+    want = _bwd_products(*args, _mm_exact, torch.float64)
+    one_pass = 0.0
+    for name, g, o, w in zip(("dx", "ddt", "dA", "dB", "dC"),
+                             _bwd_products(*args, _mm_3xtf32, torch.float32),
+                             _bwd_products(*args, _mm_tf32, torch.float32), want):
+        scale = max(1.0, w.abs().max().item())
+        err = (g.double() - w).abs().max().item() / scale
+        assert err <= 2e-5, (name, err)
+        one_pass = max(one_pass, (o.double() - w).abs().max().item() / scale)
+    assert one_pass > 2e-5, one_pass
+
+
 def _bwd_case(B, L, H, P, N, chunk, dtype, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     args = _torch(_inputs(B, L, H, P, N, seed=seed), "cuda", dtype)
@@ -444,7 +551,16 @@ def _bwd_case(B, L, H, P, N, chunk, dtype, seed):
 
 
 BWD_CARD_CASES = [(2, 64, 4, 16, 32, 16), (2, 256, 8, 64, 128, 64), (1, 200, 4, 32, 16, 100),
-                  (1, 192, 6, 64, 128, 96), (2, 300, 5, 16, 36, 150), (1, 512, 3, 64, 128, 256)]
+                  (1, 192, 6, 64, 128, 96), (2, 300, 5, 16, 36, 150), (1, 512, 3, 64, 128, 256),
+                  # mamba2-130m at full width: 24 heads; bf16 (3 heads a block): 8
+                  # groups in 4 parts of a cluster of 2; fp32 (1 a block): 4 parts of 6
+                  (4, 2048, 24, 64, 128, 256),
+                  # 5 heads; bf16: one part, a cluster of 2 groups, the second short;
+                  # fp32: 3 parts of 2, the last short; N off the mma's k16
+                  (1, 512, 5, 64, 36, 256),
+                  # 25 heads; bf16: 9 groups in 3 parts of a cluster of 3; fp32: 4
+                  # parts of 7, the last short; the parts summed in the second kernel
+                  (1, 256, 25, 32, 32, 128)]
 
 
 @pytest.mark.gpu
@@ -471,11 +587,13 @@ def test_bwd_kernel_matches_plain_on_card(B, L, H, P, N, chunk, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 300, 5, 16, 36, 150), (4, 2048, 24, 64, 128, 256),
+                                             (1, 512, 5, 64, 36, 256), (1, 256, 25, 32, 32, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_kernel_deterministic_on_card(dtype):
+def test_bwd_kernel_deterministic_on_card(B, L, H, P, N, chunk, dtype):
     """One writer per output and no atomics: a second launch is bit-equal."""
     _card()
-    args, a_cs, cots = _bwd_case(2, 300, 5, 16, 36, 150, dtype, seed=3)
+    args, a_cs, cots = _bwd_case(B, L, H, P, N, chunk, dtype, seed=3)
     first = ssd_intra_chunk_bwd(*args, a_cs, *cots)
     second = ssd_intra_chunk_bwd(*args, a_cs, *cots)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
