@@ -49,8 +49,16 @@ or of the JAX package.  In order it:
      a (4, 256) prompt token by token, 16 tokens decoded, no kernel
      launch), and the prompt's prefill logits against its token-by-token
      logits, in bf16 and again in fp32;
-  9. runs reduced olmo-1b and mamba2-130m in fp32 on the card and on the
-     CPU from the same weights: prefill logits and greedy tokens;
+     Then the MoE family the same way: granite-moe-1b-a400m and
+     deepseek-moe-16b (28 layers, 16.3 B parameters) in bf16, each prefill
+     with 24 / 28 flash launches, its dropped assignments counted and two
+     runs' logits bit-equal, and the prefill-against-serving check at a
+     capacity factor that drops nothing, in bf16 and in fp32 (deepseek-moe
+     cut to 2 layers in fp32);
+  9. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
+     deepseek-moe-16b in fp32 on the card and on the CPU from the same
+     weights: prefill logits, greedy tokens and (MoE) every layer's expert
+     choices and keep masks;
  10. trains olmo-1b at full width (bf16, (2, 2048) batches): the flash
      backward kernel held against its plain version over the forward's
      cases and its own tile edges (phase 3; q and k of two lengths
@@ -81,10 +89,19 @@ or of the JAX package.  In order it:
  13. runs 2 FedAvg rounds (``FLServer``) of 2 mamba2-130m silos at full
      width, each fold checked against the plain weighted mean on the
      card, ``fedavg_reduce`` once a round;
- 14. runs reduced olmo-1b and mamba2-130m in fp32 on the card and on the
-     CPU from the same weights: one train step each, and one federated
-     LoRA round of olmo-1b over 2 silos (adapters within 1e-4, base
-     bit-equal, traces equal).
+ 14. trains granite-moe-1b-a400m at full width and depth (bf16, (2, 2048)
+     batches; both flash kernels at its GQA head width 64 timed against
+     SDPA in phase 4): two gradients from the same weights and batch
+     bit-equal, five timed steps and one traced, each with 24 forward and
+     24 backward flash launches, and ``python -m repro_torch.launch.train
+     --arch granite-moe-1b-a400m`` with the trainer's defaults (exit 0);
+ 15. runs 2 FedAvg rounds of 2 granite-moe-1b-a400m silos at full width,
+     as phase 13 (``fedavg_reduce`` over L = 1,334,628,352);
+ 16. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
+     deepseek-moe-16b in fp32 on the card and on the CPU from the same
+     weights: one train step each, and one federated LoRA round of
+     olmo-1b over 2 silos (adapters within 1e-4, base bit-equal, traces
+     equal).
 For each path every kernel's launch count is set to 0 just before and
 read just after.
 
@@ -124,7 +141,8 @@ TRAIN_B, TRAIN_S = 2, 2048      # the zoo's full-width training batch
 TRAIN_STEPS = 5                 # timed train steps, after one warm-up
 LORA_SILOS = 4
 SSM_B = 4                       # mamba2-130m's training batch (4, 2048)
-SSM_SILOS = 2                   # mamba2-130m silos of the FedAvg rounds
+MOE_BF16_TOL = 0.2              # MoE prefill against token-by-token serving, bf16 (phase_moe_paths)
+ZOO_SILOS = 2                   # silos of the zoo's FedAvg rounds (mamba2-130m, granite-moe)
 
 
 def check(cond: bool, what: str) -> None:
@@ -404,32 +422,52 @@ def phase_kernel_timing():
     }
 
 
-def phase_fold_breakdown():
-    """Where the fold's time goes at paper width: the engine's flatten,
-    reduce and unflatten on 4 client trees on the card (CUDA events,
-    median of 5 after warm-up), beside the whole ``aggregate`` call."""
+def _fold_parts(trees: list, weights: list, n: int = 5) -> dict:
+    """Where the barrier fold's time goes: the engine's flatten, reduce
+    (the ``fedavg_reduce`` launch) and unflatten on the given client trees
+    on the card (CUDA events, median of ``n`` after warm-up), beside the
+    whole ``aggregate`` call; also the reduce's byte bound ((N + 1)·L fp32
+    elements read or written once) and the host time of a first
+    allocation of the (N, L) buffer, made after ``empty_cache`` so that
+    nothing cached fits it."""
     import torch
     from repro_torch.federated.agg_engine import AggregationEngine, plan_for
-    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    trees = [init_femnist_cnn(gen, FemnistConfig(), "cuda") for _ in range(N_SILOS)]
-    weights = [64.0] * N_SILOS
     engine = AggregationEngine()
     plan = plan_for(trees[0])
     stacked = plan.flatten_stack(trees)
     w = torch.tensor(weights, device="cuda")
     red = engine.reduce_flat(stacked, w)
     parts = {
-        "flatten_stack_ms": cuda_ms(lambda: plan.flatten_stack(trees), 5),
-        "reduce_ms": cuda_ms(lambda: engine.reduce_flat(stacked, w), 5),
-        "unflatten_ms": cuda_ms(lambda: plan.unflatten(red), 5),
-        "aggregate_ms": cuda_ms(lambda: engine.aggregate(trees, weights), 5),
+        "flatten_stack_ms": cuda_ms(lambda: plan.flatten_stack(trees), n),
+        "reduce_ms": cuda_ms(lambda: engine.reduce_flat(stacked, w), n),
+        "unflatten_ms": cuda_ms(lambda: plan.unflatten(red), n),
+        "aggregate_ms": cuda_ms(lambda: engine.aggregate(trees, weights), n),
+        "reduce_bound_ms": (len(trees) + 1) * plan.total_elems * 4 / HBM_BYTES_PER_S * 1e3,
     }
+    del stacked, red
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    buf = torch.empty((len(trees), plan.row_stride), dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    parts["first_alloc_ms"] = (time.monotonic() - t0) * 1e3
+    del buf
+    torch.cuda.empty_cache()
+    return parts
+
+
+def phase_fold_breakdown():
+    """Where the fold's time goes at paper width (``_fold_parts`` on 4
+    FEMNIST client trees)."""
+    import torch
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    trees = [init_femnist_cnn(gen, FemnistConfig(), "cuda") for _ in range(N_SILOS)]
+    parts = _fold_parts(trees, [64.0] * N_SILOS)
     say("[fold] paper-width FEMNIST, 4 silos: " + ", ".join(
         f"{k} {v:.4f}" for k, v in parts.items()))
-    del trees, stacked, red
-    torch.cuda.empty_cache()
     return parts
 
 
@@ -879,9 +917,10 @@ def phase_flash_check():
     (across tiles), full attention, ragged S (40, 100, 130, 300, 1000: below
     64 and past multiples of 64 and 128), fp32 (2e-5) and bf16
     (2e-2; the plain version rounds the softmax weights to bf16, the
-    kernel keeps them in fp32), and olmo-1b's prefill (B 4, S 2048, 16
-    heads of 128, bf16, causal), the main path's call, whose error is
-    returned.
+    kernel keeps them in fp32), and the main paths' calls: olmo-1b's
+    and deepseek-moe-16b's prefill (B 4, S 2048, 16 heads of 128, bf16,
+    causal) and granite-moe-1b-a400m's (16 query heads over 8 KV heads of
+    64), whose largest error is returned.
 
     A bf16 output is also held, as a whole, against the plain version
     computed in fp32 from the same bf16 inputs: relative L2 within 1e-2.
@@ -907,9 +946,10 @@ def phase_flash_check():
                   (2, 40, 4, 4, 64, True, None, dt), (1, 130, 4, 4, 128, False, None, dt),
                   (1, 1000, 8, 2, 128, True, 200, dt), (1, 512, 4, 4, 64, True, 300, dt),
                   (1, 256, 8, 2, 128, True, None, dt), (1, 256, 4, 1, 64, True, None, dt)]
-    main_case = (PREFILL_B, PREFILL_S, 16, 16, 128, True, None, torch.bfloat16)
-    cases.append(main_case)
-    main_err = None
+    main_cases = [(PREFILL_B, PREFILL_S, 16, 16, 128, True, None, torch.bfloat16),
+                  (PREFILL_B, PREFILL_S, 16, 8, 64, True, None, torch.bfloat16)]
+    cases += main_cases
+    main_err = 0.0
     for case in cases:
         B, S, H, KV, D, causal, window, dt = case
         q, k, v = _qkv(B, S, H, KV, D, dt, gen)
@@ -932,8 +972,8 @@ def phase_flash_check():
             f"{'causal' if causal else 'full'} window={window} {str(dt)[6:]}: "
             f"max|kernel-plain|={err:.3e} (tol {tol:g} abs+rel){l2} {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention {case} within {tol}")
-        if case == main_case:
-            main_err = err
+        if case in main_cases:
+            main_err = max(main_err, err)
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return main_err
@@ -1172,42 +1212,114 @@ def _trace_prefill(run, tag: str, what: str = "prefill") -> dict:
             "top_kernels_ms": [(name, t / 1e3) for name, t in top]}
 
 
+def _moe_module():
+    """``repro_torch.models.moe`` (the module, whose ``route`` the MoE layer
+    calls through its globals)."""
+    import repro_torch.models.moe  # noqa: F401
+
+    return sys.modules["repro_torch.models.moe"]
+
+
+class recorded_routing:
+    """Within ``with``: every MoE layer's routing, as (expert_idx (T, K),
+    keep (T*K,)) in call order, in ``.calls``."""
+
+    def __enter__(self):
+        self.mod, self.calls = _moe_module(), []
+        self.real = self.mod.route
+
+        def spy(*a, **kw):
+            r = self.real(*a, **kw)
+            self.calls.append((r.expert_idx, r.keep))
+            return r
+
+        self.mod.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+        return False
+
+    def dropped(self) -> int:
+        return sum(int((~keep).sum()) for _, keep in self.calls)
+
+
+def _choices_differ(prefill_calls, serve_calls, batch: int, prompt_len: int) -> float:
+    """Share of (token, k) expert choices that differ between a prefill of
+    a (batch, prompt_len) prompt and the same prompt served token by token
+    (each a token's K experts compared as sorted sets, layer by layer)."""
+    import torch
+
+    n_moe = len(prefill_calls)
+    pre = torch.stack([idx for idx, _ in prefill_calls]).reshape(n_moe, batch, prompt_len, -1)
+    dec = torch.stack([idx for idx, _ in serve_calls[:prompt_len * n_moe]])
+    dec = dec.reshape(prompt_len, n_moe, batch, -1).permute(1, 2, 0, 3)
+    return (pre.sort(-1).values != dec.sort(-1).values).float().mean().item()
+
+
 def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, kernel: str,
-                 per_prefill: int, tol: float, full_prefill: bool) -> dict:
-    """One zoo model at full width on the card, weights random from seed 0:
+                 per_prefill: int, tol: float, full_prefill: bool,
+                 overrides: "dict | None" = None, check_overrides: "dict | None" = None) -> dict:
+    """One zoo model at full width on the card, weights random from seed 0
+    (``overrides`` applied to its config, e.g. a cut depth):
     ``prefill_step`` on a (4, 2048) batch, PREFILL_RUNS times after a
-    warm-up (``full_prefill``; median and quartiles) and once more under
+    warm-up (``full_prefill``; median and quartiles; the first and last
+    runs' logits compared bit for bit) and once more under
     the profiler (device busy time and idle share), then the serve
     driver (token-by-token prefill of a (4, prompt_len) prompt through
     ``serve_step``, then greedy decoding), then ``prefill_step`` on that
     prompt, whose logits must agree with the token-by-token ones at every
     prompt position within ``tol`` (relative L2 over the whole tensor).
-    Every kernel's count is set to 0 just before each run and read just
-    after: ``kernel`` launches ``per_prefill`` times a prefill and never
-    in decode."""
+    Both runs of that check use the config with ``check_overrides`` (an
+    MoE model's capacity factor at which its prefill drops nothing, as
+    decoding one token never does).  Every kernel's count is set to 0 just
+    before each run and read just after: ``kernel`` launches
+    ``per_prefill`` times a prefill and never in decode.  For an MoE model
+    the warm-up prefill counts its dropped assignments, and the check
+    prints the share of expert choices that differ between its two runs."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config(arch).with_overrides(dtype=dtype, param_dtype=dtype)
+    cfg = get_config(arch).with_overrides(dtype=dtype, param_dtype=dtype, **(overrides or {}))
     model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    init_peak = torch.cuda.max_memory_allocated()
     n_params = model.param_count(params)
     prefill = make_prefill_step(model)
     only = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(0)
-    out = {"arch": arch, "dtype": dtype, "params": n_params}
-    tag = f"[zoo] {arch} {dtype}"
+    moe = cfg.n_experts > 0
+    out = {"arch": arch, "dtype": dtype, "params": n_params, "n_layers": cfg.n_layers,
+           "init_peak_bytes": init_peak}
+    tag = f"[zoo] {arch} {dtype}" + (f" ({cfg.n_layers} layers)" if overrides else "")
+    say(f"{tag}: {n_params:,} params, {sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} GB; "
+        f"max_memory_allocated at init {init_peak / 2**30:.2f} GiB")
 
     if full_prefill:
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
-        prefill(params, {"tokens": tokens})  # warm-up: cuBLAS and the kernels' first load
+        with recorded_routing() as rec:   # warm-up: cuBLAS and the kernels' first load
+            prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
+        if moe:
+            capacity = _moe_module().capacity_for(cfg, PREFILL_B * PREFILL_S,
+                                                  cfg.moe_capacity_factor)
+            n_assign = len(rec.calls) * PREFILL_B * PREFILL_S * cfg.top_k
+            out.update(dropped=rec.dropped(), assignments=n_assign, capacity=capacity)
+            say(f"{tag}: prefill ({PREFILL_B}, {PREFILL_S}) at capacity factor "
+                f"{cfg.moe_capacity_factor}: capacity {capacity} slots an expert, buffers "
+                f"({cfg.n_experts}, {capacity}, {cfg.d_model}); dropped {out['dropped']:,} of "
+                f"{n_assign:,} assignments ({out['dropped'] / n_assign:.3%}) over "
+                f"{len(rec.calls)} MoE layers")
+        del rec
         torch.cuda.reset_peak_memory_stats()
         times, all_launches = [], []
+        first = None
         for _ in range(PREFILL_RUNS):
             logits = None
             zero_counts()
@@ -1216,30 +1328,44 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
             torch.cuda.synchronize()
             times.append(time.monotonic() - t0)
             all_launches.append(counts())
+            if first is None:
+                first = logits
         launches = all_launches[-1]
         peak = torch.cuda.max_memory_allocated()
         finite = bool(torch.isfinite(logits).all())
+        bit_equal = torch.equal(first, logits)
+        del first
         q1, med, q3 = quartiles(times)
-        say(f"{tag}: {n_params:,} params; prefill_step on ({PREFILL_B}, {PREFILL_S}) median "
+        say(f"{tag}: prefill_step on ({PREFILL_B}, {PREFILL_S}) median "
             f"{med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over {PREFILL_RUNS} "
             f"runs (each {', '.join(f'{t * 1e3:.1f}' for t in times)}), logits "
-            f"{tuple(logits.shape)} {str(logits.dtype)[6:]} finite={finite}; launches a run "
+            f"{tuple(logits.shape)} {str(logits.dtype)[6:]} finite={finite}; first and last "
+            f"runs' logits bit-equal: {bit_equal}; launches a run "
             f"{launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
         check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, cfg.vocab_size)
               and logits.dtype == torch.float32 and finite, f"{arch} prefill logits")
         check(all(n == only | {kernel: per_prefill} for n in all_launches),
               f"{arch} prefill: exactly {per_prefill} {kernel} launches a run, got {all_launches}")
+        if moe:
+            check(bit_equal, f"{arch}: two prefills of the same batch are bit-equal")
         out.update(prefill_s=med, prefill_s_quartiles=(q1, med, q3), prefill_s_runs=times,
-                   prefill_launches=launches, prefill_peak_bytes=peak)
+                   prefill_launches=launches, prefill_peak_bytes=peak,
+                   prefill_bit_equal=bit_equal)
         zero_counts()
         out["prefill_trace"] = _trace_prefill(lambda: prefill(params, {"tokens": tokens}), tag)
         check(counts() == only | {kernel: per_prefill}, f"{arch} traced prefill launches")
         del logits, tokens
 
+    if check_overrides:
+        cfg = cfg.with_overrides(**check_overrides)
+        model = get_model(cfg)
+        prefill = make_prefill_step(model)
+        say(f"{tag}: the serving check runs with {check_overrides}")
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, prompt_len))).cuda()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    res = generate(model, params, prompt, decode_tokens, keep_prompt_logits=True)
+    with recorded_routing() as served:
+        res = generate(model, params, prompt, decode_tokens, keep_prompt_logits=True)
     serve_launches = counts()
     peak = torch.cuda.max_memory_allocated()
     ms_tok = res.decode_s / max(decode_tokens - 1, 1) * 1e3
@@ -1250,16 +1376,27 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
     check(serve_launches == only, f"{arch} serve: no kernel launch, got {serve_launches}")
     check(tuple(res.tokens.shape) == (PREFILL_B, decode_tokens)
           and bool(torch.isfinite(res.last_logits).all()), f"{arch} serve output")
+    if moe:
+        check(not served.dropped(), f"{arch}: token-by-token serving drops no assignment")
 
     zero_counts()
-    logits = prefill(params, {"tokens": prompt})
+    with recorded_routing() as pre:
+        logits = prefill(params, {"tokens": prompt})
     launches = counts()
     err = rel_l2(logits, res.prompt_logits)
     max_abs = (logits - res.prompt_logits).abs().max().item()
     agree = (logits.argmax(-1) == res.prompt_logits.argmax(-1)).float().mean().item()
+    routing = ""
+    if moe:
+        out["prompt_dropped"] = pre.dropped()
+        out["choices_differ"] = _choices_differ(pre.calls, served.calls, PREFILL_B, prompt_len)
+        routing = (f"; expert choices that differ {out['choices_differ']:.4%}, prefill "
+                   f"dropped {out['prompt_dropped']}")
+        check(out["prompt_dropped"] == 0, f"{arch}: the check's prefill drops nothing")
     say(f"{tag}: prefill_step on that prompt vs its token-by-token logits: relative L2 "
         f"{err:.3e} (tol {tol:g}), max|diff| {max_abs:.3e} (max|logit| "
-        f"{logits.abs().max().item():.3f}), argmax agreement {agree:.4f}; launches {launches}")
+        f"{logits.abs().max().item():.3f}), argmax agreement {agree:.4f}; launches {launches}"
+        + routing)
     check(launches == only | {kernel: per_prefill}, f"{arch} prompt prefill launches")
     check(err <= tol, f"{arch} {dtype} prefill agrees with token-by-token serving within {tol}")
     out.update(serve_prefill_s=res.prefill_s, decode_ms_per_token=ms_tok,
@@ -1267,7 +1404,7 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
                serve_peak_bytes=peak,
                prefill_vs_serve_rel_l2=err, prefill_vs_serve_max_abs=max_abs,
                argmax_agreement=agree, tokens_first_sequence=res.tokens[0].tolist())
-    del params, logits, res
+    del params, logits, res, served, pre
     torch.cuda.empty_cache()
     return out
 
@@ -1301,12 +1438,59 @@ def phase_zoo_paths():
     return out
 
 
+def _drop_free(arch: str) -> dict:
+    """The capacity factor E/K, at which capacity >= T: an MoE prefill then
+    drops nothing, as token-by-token decoding never does."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return {"moe_capacity_factor": cfg.n_experts / cfg.top_k}
+
+
+def phase_moe_paths():
+    """The MoE serve path at full width (``_serve_check``): granite-moe-
+    1b-a400m (24 layers, 16 query over 8 KV heads of 64, 32 experts top 8)
+    and deepseek-moe-16b at full depth (28 layers, the first dense, 16 x
+    128 MHA, 2 shared + 64 routed experts top 6) in bf16, each with the
+    (4, 2048) prefill at the configs' capacity factor 1.25 (24 and 28
+    flash launches, dropped assignments counted) and the serve driver;
+    then the prefill-against-serving check in fp32, granite at full depth
+    and deepseek-moe-16b cut to 2 layers (the dense one and one MoE: its
+    whole fp32 model would be 65 GB).  The checks run at capacity factor
+    E/K (``_drop_free``).
+
+    Tolerances (relative L2 over all logits): fp32 1e-3, as for the other
+    families.  bf16: MOE_BF16_TOL, 0.2; the two paths round differently
+    (see ``phase_zoo_paths``), and where a token's router is near a tie
+    between its k-th and (k+1)-th expert, that rounding can move it to
+    another expert in one path, which changes the token's expert output
+    by a whole gated expert row from that layer on.  Random routers are
+    near uniform, so near ties are common: an H100 run read 2.5e-2
+    for granite (3.8 % of expert choices differ) and 6.8e-2 for
+    deepseek-moe-16b (10.0 %), so the limit is 3x the larger; a wrong
+    dispatch or combine moves the logits by O(1).  The share of choices
+    that differ is printed.  The fp32 checks hold the MoE path tightly."""
+    out = {}
+    for arch, per, decode in (("granite-moe-1b-a400m", 24, 16), ("deepseek-moe-16b", 28, 4)):
+        out[f"{arch} bf16"] = _serve_check(arch, "bfloat16", 32, decode, "flash_attention", per,
+                                           MOE_BF16_TOL, True, check_overrides=_drop_free(arch))
+    out["granite-moe-1b-a400m fp32"] = _serve_check(
+        "granite-moe-1b-a400m", "float32", 32, 2, "flash_attention", 24, 1e-3, False,
+        check_overrides=_drop_free("granite-moe-1b-a400m"))
+    out["deepseek-moe-16b fp32"] = _serve_check(
+        "deepseek-moe-16b", "float32", 32, 2, "flash_attention", 2, 1e-3, False,
+        overrides={"n_layers": 2}, check_overrides=_drop_free("deepseek-moe-16b"))
+    return out
+
+
 def phase_zoo_reference_check():
-    """Reduced olmo-1b and mamba2-130m in fp32 from the same weights on the
-    card (kernels) and on the CPU (plain versions): prefill logits on a
-    (2, 64) batch within 1e-4 (abs and rel; fp32 summed in other orders,
-    the CPU parity tests' tolerance) and the serve driver's greedy tokens
-    equal."""
+    """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
+    deepseek-moe-16b in fp32 from the same weights on the card (kernels)
+    and on the CPU (plain versions): prefill logits on a (2, 64) batch
+    within 1e-4 (abs and rel; fp32 summed in other orders, the CPU parity
+    tests' tolerance), the serve driver's greedy tokens equal, and for the
+    MoE models every layer's expert choices and keep mask equal (at the
+    configs' capacity factor, where this batch drops assignments)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1316,7 +1500,9 @@ def phase_zoo_reference_check():
     from repro_torch.utils.tree import tree_map
 
     out = {}
-    for arch, kernel in (("olmo-1b", "flash_attention"), ("mamba2-130m", "ssd_chunk_scan")):
+    for arch, kernel in (("olmo-1b", "flash_attention"), ("mamba2-130m", "ssd_chunk_scan"),
+                         ("granite-moe-1b-a400m", "flash_attention"),
+                         ("deepseek-moe-16b", "flash_attention")):
         cfg = get_config(arch).reduced().with_overrides(dtype="float32", param_dtype="float32")
         model = get_model(cfg)
         params = model.init(torch.Generator().manual_seed(3), "cpu")
@@ -1327,20 +1513,31 @@ def phase_zoo_reference_check():
         for device in ("cuda", "cpu"):
             p = tree_map(lambda t: t.to(device), params)
             zero_counts()
-            logits = make_prefill_step(model)(p, {"tokens": tokens.to(device)})
+            with recorded_routing() as rec:
+                logits = make_prefill_step(model)(p, {"tokens": tokens.to(device)})
             toks = generate(model, p, prompt.to(device), 6).tokens
-            runs[device] = (logits.cpu(), toks.cpu(), counts()[kernel])
-        (cl, ct, cn), (pl, pt, pn) = runs["cuda"], runs["cpu"]
+            runs[device] = (logits.cpu(), toks.cpu(), counts()[kernel],
+                            [(i.cpu(), k.cpu()) for i, k in rec.calls])
+        (cl, ct, cn, cr), (pl, pt, pn, pr) = runs["cuda"], runs["cpu"]
         err = (cl - pl).abs().max().item()
         ok = torch.allclose(cl, pl, atol=1e-4, rtol=1e-4)
         same = torch.equal(ct, pt)
+        routing = ""
+        if cfg.n_experts:
+            same_route = len(cr) == len(pr) > 0 and all(
+                torch.equal(a, b) and torch.equal(ka, kb) for (a, ka), (b, kb) in zip(cr, pr))
+            drops = sum(int((~k).sum()) for _, k in pr)
+            routing = (f"; expert choices and keep masks equal in {len(pr)} MoE layers: "
+                       f"{same_route} ({drops} assignments dropped)")
+            same = same and same_route
+            out[arch + " routing_equal"] = same_route
         say(f"[reference] reduced {arch} fp32, card against CPU: max|logits diff| {err:.3e} "
-            f"(tol 1e-4 abs+rel) {'ok' if ok else 'FAIL'}; greedy tokens equal: {same}; "
-            f"{kernel} launches card {cn}, cpu {pn}")
+            f"(tol 1e-4 abs+rel) {'ok' if ok else 'FAIL'}; greedy tokens equal: "
+            f"{torch.equal(ct, pt)}; {kernel} launches card {cn}, cpu {pn}" + routing)
         check(ok and same, f"reduced {arch}: card agrees with the CPU")
         check(cn == cfg.n_layers and pn == 0, f"{arch}: the card run launched the kernel once a "
               f"layer, the CPU run not at all")
-        out[arch] = {"max_logits_diff": err, "tokens_equal": same}
+        out[arch] = {"max_logits_diff": err, "tokens_equal": torch.equal(ct, pt)}
     return out
 
 
@@ -1359,8 +1556,10 @@ def _flash_module():
 def phase_flash_bwd_check():
     """The backward kernel against ``flash_attention_bwd_plain`` computed in
     fp32 from the same inputs (the forward kernel's output and log-sum-exp,
-    the same dO): olmo-1b's shape (4, 2048, 16, 128) causal bf16 (the main
-    path's call), GQA (32 query heads on 8, and 8:1), D 64, a window across
+    the same dO): the main paths' calls, olmo-1b's shape (4, 2048, 16, 128)
+    and granite-moe-1b-a400m's (4, 2048, 16 query heads over 8 KV heads of
+    64), causal bf16, each also relaunched and held bit-equal; then GQA
+    (32 query heads on 8, and 8:1), D 64, a window across
     tiles and one narrower than a 64-row tile, full attention, ragged S
     (1000, 130 and 1) and S at the bf16 kernels' tile edges (63, 64, 65,
     127, 128, 129), the fp32 path, and a q whose base is off 16 bytes; then
@@ -1372,14 +1571,15 @@ def phase_flash_bwd_check():
     log-sum-exp is held against ``attention_lse_plain`` within 2e-5 of its
     scale, and the forward's output with the log-sum-exp stored must equal
     the output without it bit for bit.  Returns the largest |kernel - plain|
-    over the three gradients at olmo-1b's shape."""
+    over the three gradients at the main paths' shapes."""
     import torch
 
     fa = _flash_module()
     gen = torch.Generator(device="cuda").manual_seed(11)
     bf, f32 = torch.bfloat16, torch.float32
-    main_case = (PREFILL_B, PREFILL_S, 16, 16, 128, True, None, bf)
-    cases = [main_case,
+    main_cases = [(PREFILL_B, PREFILL_S, 16, 16, 128, True, None, bf),
+                  (PREFILL_B, PREFILL_S, 16, 8, 64, True, None, bf)]
+    cases = [*main_cases,
              (2, 1024, 32, 8, 128, True, None, bf),     # GQA 4:1
              (2, 512, 8, 8, 64, True, None, bf),        # D 64
              (1, 1000, 8, 2, 128, True, 200, bf),       # a window across tiles
@@ -1400,7 +1600,7 @@ def phase_flash_bwd_check():
              (1, 1000, 4, 2, 128, True, 100, f32),
              (2, 130, 4, 4, 128, False, None, f32),
              (1, 1, 4, 4, 64, True, None, f32)]
-    main_err = None
+    main_err = 0.0
     for case in cases:
         B, S, H, KV, D, causal, window, dt = case
         q, k, v = _qkv(B, S, H, KV, D, dt, gen)
@@ -1438,11 +1638,11 @@ def phase_flash_bwd_check():
             + f" (tol {tol:g}); lse max|diff| {lse_err:.3e}; output with lse stored "
             f"bit-equal {torch.equal(o, o_plain_fwd)} {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention_bwd {case}")
-        if case == main_case:
-            main_err = max(errs)
+        if case in main_cases:
+            main_err = max(main_err, *errs)
             again = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            say(f"[check] flash_attention_bwd at olmo-1b's shape, a second launch on the same "
+            say(f"[check] flash_attention_bwd at {case[:5]}, a second launch on the same "
                 f"inputs: bit-equal {same} (one writer per output, no atomics)")
             check(same, "flash_attention_bwd is deterministic")
             del again
@@ -1567,6 +1767,70 @@ def phase_flash_bwd_timing():
     del q, k, v, o, dout, lse, qt, kt, vt
     torch.cuda.empty_cache()
     return row
+
+
+def phase_flash_gqa_timing():
+    """Both flash kernels at granite-moe-1b-a400m's attention shape: q
+    (4, 2048, 16, 64), k and v (4, 2048, 8, 64), bf16, causal (GQA 2:1 at
+    head width 64).  Forward: kernel, plain version and
+    ``F.scaled_dot_product_attention(enable_gqa=True)``; backward: kernel,
+    plain version and SDPA's forward + backward less its forward, each in
+    alternating rounds.  Bounds as at olmo-1b's shape: the forward's
+    2·B·H·D·S·(S+1) flops (H the query heads), the backward's 2.5 times
+    that, on the bf16 tensor cores' 989 TFLOP/s; bytes q, k, v, o (and dO,
+    the log-sum-exp, dq, dk, dv for the backward) read or written once."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = _flash_module()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, S, H, KV, D = PREFILL_B, PREFILL_S, 16, 8, 64
+    q, k, v = _qkv(B, S, H, KV, D, torch.bfloat16, gen)
+    what = f"granite-moe-1b-a400m ({B}, {S}, {H} q / {KV} KV heads, {D}) bf16 causal"
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa()
+
+    q4, n = alternating({"kernel": lambda: fa.flash_attention(q, k, v),
+                         "plain": lambda: fa.flash_attention_plain(q, k, v),
+                         "library": sdpa_fwd})
+    fwd_flops = 2 * B * H * D * S * (S + 1)
+    q_bytes, kv_bytes = B * S * H * D * 2, B * S * KV * D * 2
+    fwd = _bound_row(q4, n, fwd_flops, BF16_FLOPS_PER_S, 2 * q_bytes + 2 * kv_bytes,
+                     f"flash_attention {what}",
+                     "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)")
+
+    dout = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    o = fa._launch(q, k, v, True, None, lse=lse)
+    dot = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        qt.grad = kt.grad = vt.grad = None
+        sdpa().backward(dot)
+
+    q4, n = alternating({
+        "kernel": lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout),
+        "plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, dout),
+        "library": sdpa_fwd_bwd,
+        "library_fwd": sdpa_fwd,
+    })
+    lib = q4["library"][1] - q4["library_fwd"][1]
+    bwd = _bound_row(q4, n, 2.5 * fwd_flops, BF16_FLOPS_PER_S,
+                     4 * q_bytes + 4 * kv_bytes + B * H * S * 4,
+                     f"flash_attention_bwd {what}", "F.scaled_dot_product_attention forward + backward")
+    bwd["library_ms"], bwd["library_fwd_ms"] = lib, q4["library_fwd"][1]
+    say(f"[time] at granite's shape: the forward is {fwd['ms'] / fwd['library_ms']:.2f}x SDPA; "
+        f"SDPA's gradient alone (forward + backward {q4['library'][1]:.4f} ms minus its forward "
+        f"{q4['library_fwd'][1]:.4f} ms) {lib:.4f} ms, the backward kernel {bwd['ms'] / lib:.2f}x it")
+    del q, k, v, o, dout, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "backward": bwd}
 
 
 def _device_ms(fn, n: int = 5) -> dict:
@@ -1907,10 +2171,11 @@ def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
 
 
 def phase_train_reference_check():
-    """Reduced olmo-1b and mamba2-130m in fp32 on the card (kernels) and on
-    the CPU (plain versions) from the same weights: one train step each
-    (``_train_step_card_vs_cpu``; olmo-1b's updated parameters held leaf by
-    leaf, mamba2-130m's, which start with zero biases, as one vector), and
+    """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
+    deepseek-moe-16b in fp32 on the card (kernels) and on the CPU (plain
+    versions) from the same weights: one train step each
+    (``_train_step_card_vs_cpu``; updated parameters held leaf by leaf,
+    but mamba2-130m's, which start with zero biases, as one vector), and
     one federated LoRA round of olmo-1b
     (``with_lora(2)``, 2 silos, uncompressed, fold cost fixed so the
     trace's times are arithmetic): adapters within 1e-4, base leaves
@@ -1927,10 +2192,12 @@ def phase_train_reference_check():
 
     olmo = _train_step_card_vs_cpu("olmo-1b", "flash_attention_bwd", per_leaf=True)
     mamba = _train_step_card_vs_cpu("mamba2-130m", "ssd_intra_chunk_bwd", per_leaf=False)
+    moe = {arch: _train_step_card_vs_cpu(arch, "flash_attention_bwd", per_leaf=True)
+           for arch in ("granite-moe-1b-a400m", "deepseek-moe-16b")}
     cfg = get_config("olmo-1b").reduced().with_overrides(dtype="float32", param_dtype="float32")
     lcfg = cfg.with_lora(2)
     out = {"train_loss": olmo["loss"], "train_worst_rel_l2": olmo["worst_rel_l2"],
-           "ssm_train": mamba}
+           "ssm_train": mamba, "moe_train": moe}
     results = {}
     for device in ("cuda", "cpu"):
         silos = make_lm_silos(2, lcfg.vocab_size, 32, [(4, 2), (4, 2)], seed=2)
@@ -2202,16 +2469,17 @@ def phase_ssd_bwd_timing():
     return row
 
 
-def phase_ssm_train_step():
-    """mamba2-130m at full width and depth in bf16, random weights from seed
-    0, through ``make_train_step`` with ``make_optimizer_for`` (AdamW, fp32
-    state) on (4, 2048) batches of ``SyntheticLM`` tokens: one warm-up
+def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: list) -> dict:
+    """``arch`` at full width and depth in bf16, random weights from seed 0,
+    through ``make_train_step`` with ``make_optimizer_for`` (AdamW, fp32
+    state) on (batch, 2048) batches of ``SyntheticLM`` tokens: one warm-up
     step, TRAIN_STEPS timed ones (host clock ending in a synchronize), each
-    with 24 ``ssd_chunk_scan`` forward and 24 backward launches and nothing
-    else, losses finite; one more step under ``torch.profiler``.  Then the
-    trainer as a user runs it, in its own process:
-    ``python -m repro_torch.launch.train --arch mamba2-130m --steps 8
-    --batch 4 --seq 2048`` must exit 0 (the loss fell)."""
+    with one ``fwd`` and one ``bwd`` launch a layer and nothing else, losses
+    finite; one more step under ``torch.profiler``.  First the gradients of
+    two differentiations of the loss from the same weights and batch must
+    be bit-equal (no atomic accumulation on the path).  Then the trainer as a user runs it, in
+    its own process: ``python -m repro_torch.launch.train --arch <arch>``
+    with ``trainer_args`` must exit 0 (the loss fell)."""
     import os
 
     import numpy as np
@@ -2220,8 +2488,9 @@ def phase_ssm_train_step():
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_optimizer_for, make_train_step
     from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
-    cfg = get_config("mamba2-130m")
+    cfg = get_config(arch)
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
     opt = make_optimizer_for(cfg)
@@ -2229,10 +2498,24 @@ def phase_ssm_train_step():
     step = make_train_step(model, opt)
     ds = SyntheticLM(cfg.vocab_size, PREFILL_S, seed=0)
     rng = np.random.default_rng(0)
-    batches = [_lm_batch(ds, rng, SSM_B) for _ in range(TRAIN_STEPS + 2)]
-    tag = "[train] mamba2-130m bf16"
+    batches = [_lm_batch(ds, rng, batch) for _ in range(TRAIN_STEPS + 2)]
+    tag = f"[train] {arch} bf16"
     L = cfg.n_layers
-    only = dict.fromkeys(KERNELS, 0) | {"ssd_chunk_scan": L, "ssd_intra_chunk_bwd": L}
+    only = dict.fromkeys(KERNELS, 0) | {fwd: L, bwd: L}
+    leaves, treedef = tree_flatten(params)
+    grads = []
+    for _ in range(2):
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        loss = model.loss(tree_unflatten(treedef, live), batches[0])
+        grads.append((loss.detach(), torch.autograd.grad(loss, live)))
+    (l1, g1), (l2, g2) = grads
+    same = [torch.equal(a, b) for a, b in zip(g1, g2)]
+    say(f"{tag}: two gradients from the same weights and batch ({batch}, {PREFILL_S}): "
+        f"losses {float(l1):.6f} / {float(l2):.6f} bit-equal {torch.equal(l1, l2)}; "
+        f"{sum(same)} of {len(same)} leaves' gradients bit-equal")
+    check(torch.equal(l1, l2) and all(same), f"{arch}: repeated gradients bit-equal")
+    out = {"repeat_grads_bit_equal": all(same)}
+    del grads, g1, g2, live, loss, leaves
     zero_counts()
     params, state, loss = step(params, state, batches[0])   # warm-up
     torch.cuda.synchronize()
@@ -2249,14 +2532,14 @@ def phase_ssm_train_step():
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     q1, med, q3 = quartiles(times)
-    say(f"{tag}: {model.param_count(params):,} params, batch ({SSM_B}, {PREFILL_S}): train step "
+    say(f"{tag}: {model.param_count(params):,} params, batch ({batch}, {PREFILL_S}): train step "
         f"median {med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over "
         f"{TRAIN_STEPS} steps (each {', '.join(f'{t * 1e3:.1f}' for t in times)}); losses "
         f"{', '.join(f'{x:.4f}' for x in losses)}; launches a step {all_launches[-1]}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    check(all(math.isfinite(x) for x in losses), "mamba2 train step losses finite")
+    check(all(math.isfinite(x) for x in losses), f"{arch} train step losses finite")
     check(all(n == only for n in all_launches),
-          f"a mamba2 train step launches {L} ssd_chunk_scan forwards and {L} backwards, got "
+          f"a {arch} train step launches {L} {fwd} forwards and {L} backwards, got "
           f"{all_launches}")
     zero_counts()
     holder = {}
@@ -2265,12 +2548,11 @@ def phase_ssm_train_step():
         holder["out"] = step(params, state, batches[-1])
 
     trace = _trace_prefill(traced, tag, "train step")
-    check(counts() == only, "traced mamba2 train step launches")
+    check(counts() == only, f"traced {arch} train step launches")
     del params, state, holder, batches
     torch.cuda.empty_cache()
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "mamba2-130m",
-           "--steps", "8", "--batch", str(SSM_B), "--seq", str(PREFILL_S)]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch] + trainer_args
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.monotonic()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
@@ -2279,19 +2561,37 @@ def phase_ssm_train_step():
         say(f"[trainer] {line}")
     m = re.search(r"done: loss ([0-9.naif]+) -> ([0-9.naif]+)", proc.stdout)
     first, last = (float(m.group(1)), float(m.group(2))) if m else (None, None)
-    say(f"[trainer] python -m repro_torch.launch.train --arch mamba2-130m: exit code "
-        f"{proc.returncode} in {wall:.1f} s; first loss {first}, last {last}")
+    say(f"[trainer] python -m repro_torch.launch.train --arch {arch} {' '.join(trainer_args)}: "
+        f"exit code {proc.returncode} in {wall:.1f} s; first loss {first}, last {last}")
     check(proc.returncode == 0 and "device=cuda" in proc.stdout,
-          "the mamba2-130m trainer exits 0 on the card (the loss fell)")
-    return {"step_s": med, "step_s_quartiles": (q1, med, q3), "step_s_runs": times,
-            "losses": losses, "launches": all_launches[-1], "peak_bytes": peak,
-            "trace": trace, "trainer": {"rc": proc.returncode, "first_loss": first,
-                                        "last_loss": last, "wall_s": wall}}
+          f"the {arch} trainer exits 0 on the card (the loss fell)")
+    out.update(step_s=med, step_s_quartiles=(q1, med, q3), step_s_runs=times,
+               losses=losses, launches=all_launches[-1], peak_bytes=peak, trace=trace,
+               trainer={"rc": proc.returncode, "first_loss": first, "last_loss": last,
+                        "wall_s": wall})
+    return out
 
 
-def phase_ssm_fedavg_rounds():
-    """FedAvg of mamba2-130m at full width, the system's main path:
-    ``FLServer`` barrier rounds over SSM_SILOS silos of ``make_lm_silos``
+def phase_ssm_train_step():
+    """mamba2-130m on (4, 2048) batches, 24 ``ssd_chunk_scan`` forward and
+    24 backward launches a step (``_zoo_train_phase``); its trainer with
+    ``--steps 8 --batch 4 --seq 2048``."""
+    return _zoo_train_phase("mamba2-130m", SSM_B, "ssd_chunk_scan", "ssd_intra_chunk_bwd",
+                            ["--steps", "8", "--batch", str(SSM_B), "--seq", str(PREFILL_S)])
+
+
+def phase_moe_train_step():
+    """granite-moe-1b-a400m on (2, 2048) batches, 24 ``flash_attention``
+    forward and 24 backward launches a step (``_zoo_train_phase``); the
+    reference's trainer command ``--arch granite-moe-1b-a400m`` with its
+    defaults (50 steps of (8, 128))."""
+    return _zoo_train_phase("granite-moe-1b-a400m", TRAIN_B, "flash_attention",
+                            "flash_attention_bwd", [])
+
+
+def _zoo_fedavg_phase(arch: str, fwd: str, bwd: str) -> dict:
+    """FedAvg of ``arch`` at full width, the system's main path:
+    ``FLServer`` barrier rounds over ZOO_SILOS silos of ``make_lm_silos``
     (4 train and 2 test sequences of 2048 tokens each), ``FLClient`` with
     the zoo's loss and ``make_optimizer_for`` (AdamW), batch 2, so 2 local
     steps a round; 2 rounds, no checkpoints (the FEMNIST path writes them).
@@ -2300,8 +2600,8 @@ def phase_ssm_fedavg_rounds():
     card from the same (N, L) fp32 buffer, within the barrier-round
     kernel check's tolerance for the leaf's dtype (2e-5 fp32, 2e-2 bf16,
     absolute and relative); each round must launch ``fedavg_reduce`` once,
-    and the SSD kernels 24 times a batch (forward for the 2 train and 1
-    eval batch of each silo, backward for the train batches)."""
+    and ``fwd`` and ``bwd`` once a layer a batch (forward for the 2 train
+    and 1 eval batch of each silo, backward for the train batches)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import make_lm_silos
@@ -2312,11 +2612,11 @@ def phase_ssm_fedavg_rounds():
     from repro_torch.models import get_model
     from repro_torch.utils.tree import tree_flatten
 
-    cfg = get_config("mamba2-130m")
+    cfg = get_config(arch)
     model = get_model(cfg)
     params0 = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = model.param_count(params0)
-    silos = make_lm_silos(SSM_SILOS, cfg.vocab_size, PREFILL_S, [(4, 2)] * SSM_SILOS, seed=0)
+    silos = make_lm_silos(ZOO_SILOS, cfg.vocab_size, PREFILL_S, [(4, 2)] * ZOO_SILOS, seed=0)
 
     def loss_fn(p, b):
         return model.loss(p, {"tokens": b[0], "labels": b[1]})
@@ -2352,9 +2652,8 @@ def phase_ssm_fedavg_rounds():
         del stacked, want
         return None
 
-    per_round = {"fedavg_reduce": 1,
-                 "ssd_chunk_scan": SSM_SILOS * (2 + 1) * cfg.n_layers,
-                 "ssd_intra_chunk_bwd": SSM_SILOS * 2 * cfg.n_layers}
+    per_round = {"fedavg_reduce": 1, fwd: ZOO_SILOS * (2 + 1) * cfg.n_layers,
+                 bwd: ZOO_SILOS * 2 * cfg.n_layers}
     launches_after = []
 
     def hook(round_idx, params):
@@ -2372,32 +2671,54 @@ def phase_ssm_fedavg_rounds():
     wall = time.monotonic() - t0
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
-    tag = "[fedavg] mamba2-130m bf16"
+    tag = f"[fedavg] {arch} bf16"
     rounds = []
+    # agg_time_s runs from the fold's start to the end of the post-round
+    # hook, here the check against the plain mean; round_span_s is the
+    # engine's fold alone, to the device's finish.
     for rec, fold in zip(run.rounds, folds):
         say(f"{tag} round {rec.round_idx}: loss {rec.metrics['loss']:.4f}; train "
-            f"{rec.train_time_s:.3f} s, fold {rec.agg_time_s:.4f} s, eval {rec.eval_time_s:.3f} s; "
+            f"{rec.train_time_s:.3f} s, fold {rec.round_span_s:.4f} s (then the hook's check "
+            f"{rec.agg_time_s - rec.round_span_s:.4f} s), eval {rec.eval_time_s:.3f} s; "
             f"fold against the plain weighted mean (weights {fold['n_samples']}): max|diff| "
             + ", ".join(f"{k} {v:.3e}" for k, v in fold["max_abs_err"].items()))
         rounds.append({"round": rec.round_idx, "loss": rec.metrics["loss"],
-                       "train_s": rec.train_time_s, "fold_s": rec.agg_time_s,
+                       "train_s": rec.train_time_s, "fold_s": rec.round_span_s,
+                       "check_s": rec.agg_time_s - rec.round_span_s,
                        "eval_s": rec.eval_time_s, "fold_max_abs_err": fold["max_abs_err"]})
     want = dict.fromkeys(KERNELS, 0) | {k: 2 * v for k, v in per_round.items()}
-    say(f"{tag}: {SSM_SILOS} silos, {n_params:,} parameters, 2 rounds in {wall:.1f} s; launches "
+    say(f"{tag}: {ZOO_SILOS} silos, {n_params:,} parameters, 2 rounds in {wall:.1f} s; launches "
         f"{launches}; by round 1's fold {launches_after[0]}; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
     check(len(folds) == 2 and all(math.isfinite(r["loss"]) for r in rounds),
-          "two FedAvg rounds of mamba2-130m with finite losses")
+          f"two FedAvg rounds of {arch} with finite losses")
     # The hook runs after the fold and before the round's evaluation.
-    first_fold = dict.fromkeys(KERNELS, 0) | per_round | {
-        "ssd_chunk_scan": per_round["ssd_intra_chunk_bwd"]}
+    first_fold = dict.fromkeys(KERNELS, 0) | per_round | {fwd: per_round[bwd]}
     check(launches_after[0] == first_fold and launches == want,
           f"a FedAvg round launches {per_round}, got {launches_after[0]} by round 1's fold, "
           f"then {launches}")
+    trees = [results[c.client_id].params for c in clients]
+    weights = [float(results[c.client_id].n_samples) for c in clients]
     del server, run, clients, params0, results
     torch.cuda.empty_cache()
+    parts = _fold_parts(trees, weights, n=3)
+    say(f"{tag}: the fold at L = {n_params:,}, {ZOO_SILOS} silos (round 2's weights): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in parts.items()))
+    del trees
+    torch.cuda.empty_cache()
     return {"rounds": rounds, "launches": launches, "wall_s": wall, "peak_bytes": peak,
-            "n_params": n_params}
+            "n_params": n_params, "fold_parts": parts}
+
+
+def phase_ssm_fedavg_rounds():
+    """FedAvg of mamba2-130m silos (``_zoo_fedavg_phase``): both SSD kernels."""
+    return _zoo_fedavg_phase("mamba2-130m", "ssd_chunk_scan", "ssd_intra_chunk_bwd")
+
+
+def phase_moe_fedavg_rounds():
+    """FedAvg of granite-moe-1b-a400m silos (``_zoo_fedavg_phase``): both
+    flash kernels and ``fedavg_reduce`` over L = 1,334,628,352."""
+    return _zoo_fedavg_phase("granite-moe-1b-a400m", "flash_attention", "flash_attention_bwd")
 
 
 def main() -> int:
@@ -2420,6 +2741,7 @@ def main() -> int:
     dq_timing = phase_dequant_timing()
     zoo_timing = phase_zoo_timing()
     ssd_bwd_timing = phase_ssd_bwd_timing()   # before any phase that traces
+    gqa_timing = phase_flash_gqa_timing()
     bwd_timing = phase_flash_bwd_timing()
     fold = phase_fold_breakdown()
     compressed_split = phase_compressed_breakdown()
@@ -2431,12 +2753,15 @@ def main() -> int:
     reference = phase_reference_check()
     compressed_reference = phase_compressed_reference_check()
     zoo = phase_zoo_paths()
+    moe_zoo = phase_moe_paths()
     zoo_reference = phase_zoo_reference_check()
     train_step = phase_train_step()
     trainer = phase_trainer_entry()
     lora = phase_lora_rounds()
     ssm_train = phase_ssm_train_step()
     ssm_fedavg = phase_ssm_fedavg_rounds()
+    moe_train = phase_moe_train_step()
+    moe_fedavg = phase_moe_fedavg_rounds()
     train_reference = phase_train_reference_check()
 
     dq = dq_timing["int8"]
@@ -2465,9 +2790,13 @@ def main() -> int:
         "bound_by": dq["bound_by"],
         "library_ms": dq["library_ms"],
     }]
+    # A kernel's launches: summed over the full-width runs that go through
+    # it, one run a path (a prefill a served model, a step a trained one).
     for name, src, replaces, launches, err in (
             ("flash_attention", "flash_attention.cu", "flash_attention.py:30",
-             zoo["olmo-1b bf16"]["prefill_launches"]["flash_attention"], flash_err),
+             sum(zoo_run["prefill_launches"]["flash_attention"]
+                 for zoo_run in (zoo["olmo-1b bf16"], moe_zoo["granite-moe-1b-a400m bf16"],
+                                 moe_zoo["deepseek-moe-16b bf16"])), flash_err),
             ("ssd_chunk_scan", "ssd_scan.cu", "ssd_scan.py:27",
              zoo["mamba2-130m bf16"]["prefill_launches"]["ssd_chunk_scan"], ssd_err)):
         row = zoo_timing[name]
@@ -2489,7 +2818,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/layers.py:97",
-        "launches": train_step["launches"]["flash_attention_bwd"],
+        "launches": (train_step["launches"]["flash_attention_bwd"]
+                     + moe_train["launches"]["flash_attention_bwd"]),
         "max_abs_err": bwd_err,
         "ms": bwd_timing["ms"],
         "plain_ms": bwd_timing["plain_ms"],
@@ -2518,6 +2848,8 @@ def main() -> int:
         "compressed_breakdown": compressed_split, "compressed_path": compressed,
         "compressed_reference": compressed_reference, "zoo_timing": zoo_timing, "zoo": zoo,
         "zoo_reference": zoo_reference, "flash_bwd_timing": bwd_timing,
+        "flash_gqa_timing": gqa_timing, "moe_zoo": moe_zoo, "moe_train": moe_train,
+        "moe_fedavg": moe_fedavg,
         "train_step": train_step, "trainer": trainer, "lora": lora,
         "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
         "train_reference": train_reference, "seconds": time.monotonic() - t_start,

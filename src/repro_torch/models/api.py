@@ -1,15 +1,15 @@
 """Unified model API, the port of ``repro/models/api.py``: one dispatch
 point over the architecture families.
 
-Ported: ``dense``, ``vlm`` and ``ssm`` (init, loss, prefill, cache,
-decode, parameter counts).  ``loss`` is differentiable; on a card the
-``dense`` and ``vlm`` families train through the attention kernels'
-backward, while ``ssm`` trains on the CPU only (the SSD scan kernel has
-no backward yet and raises).  ``moe``, ``hybrid`` and ``encdec``
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Ported: ``dense``, ``moe``, ``vlm`` and ``ssm`` (init, loss, prefill,
+cache, decode, parameter counts).  ``loss`` is differentiable; on a card
+the ``dense``, ``moe`` and ``vlm`` families train through the attention
+kernels' backward and ``ssm`` through the SSD scan's.  ``hybrid`` and
+``encdec`` raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.
 
 Per-family inputs (all batched):
-  prefill/loss : dense/ssm -> {tokens, labels}
+  prefill/loss : dense/moe/ssm -> {tokens, labels}
                  vlm       -> {tokens, labels, patch_embeds}
   decode       : token (B, 1), pos, and the family's cache
 """
@@ -28,9 +28,8 @@ from . import transformer as T
 
 Params = Dict[str, Any]
 
-PORTED = ("dense", "vlm", "ssm")
+PORTED = ("dense", "moe", "vlm", "ssm")
 _TODO = {
-    "moe": T.MOE_TODO,
     "hybrid": "the hybrid family: ROADMAP.md queue 1, item 15 (hybrid.py)",
     "encdec": "the encoder-decoder family: ROADMAP.md queue 1, item 15 (encdec.py)",
 }
@@ -57,7 +56,7 @@ class ModelFamily:
     # -- loss ------------------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg, a = self.cfg, self._family()
-        if a == "dense":
+        if a in ("dense", "moe"):
             return T.lm_loss(params, batch["tokens"], batch["labels"], cfg)
         if a == "vlm":
             return T.lm_loss(params, batch["tokens"], batch["labels"], cfg,
@@ -68,7 +67,7 @@ class ModelFamily:
     # -- prefill (forward w/o loss; returns logits) ----------------------------
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg, a = self.cfg, self._family()
-        if a == "dense":
+        if a in ("dense", "moe"):
             return T.lm_forward(params, batch["tokens"], cfg)[0]
         if a == "vlm":
             return T.lm_forward(params, batch["tokens"], cfg,
@@ -94,10 +93,19 @@ class ModelFamily:
         return sum(int(x.numel()) for x in tree_leaves(params))
 
     def active_param_count(self, params: Params) -> int:
-        """Active params per token; every ported family is dense, so all
-        of them (the MoE's top_k share comes with the MoE family)."""
+        """Active params per token (MoE: top_k of n_experts), by the
+        reference's rule: routed-expert leaves are those of 3 dimensions
+        whose leading one is n_experts.  Stacked layers make them 4-D, so
+        for the zoo's MoE configs this is the total, as the reference's is."""
+        cfg = self.cfg
         self._family()
-        return self.param_count(params)
+        total = self.param_count(params)
+        if cfg.n_experts == 0:
+            return total
+        expert_leaves = sum(int(x.numel()) for x in tree_leaves(params)
+                            if x.ndim == 3 and x.shape[0] == cfg.n_experts)
+        active_frac = cfg.top_k / cfg.n_experts
+        return int(total - expert_leaves + expert_leaves * active_frac)
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

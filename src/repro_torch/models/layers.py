@@ -294,9 +294,19 @@ def grad_dtype_guard(x: torch.Tensor) -> torch.Tensor:
 
 def stack_layers(init_fn: Callable[[torch.Generator], Params], gen: torch.Generator,
                  n_layers: int) -> Params:
-    """Initialize n_layers homogeneous layers and stack each leaf on axis 0."""
-    layers = [init_fn(gen) for _ in range(n_layers)]
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *layers)
+    """Initialize n_layers homogeneous layers and stack each leaf on axis 0.
+    Each layer is copied into the stacks as soon as it is drawn, so the
+    stacks and one layer are all that is held at once (deepseek-moe-16b's
+    27 MoE layers are 30 GB in bf16)."""
+    leaves, treedef = tree_flatten(init_fn(gen))
+    stacks = [torch.empty((n_layers,) + t.shape, dtype=t.dtype, device=t.device) for t in leaves]
+    for i in range(n_layers):
+        if i:
+            leaves = tree_flatten(init_fn(gen))[0]
+        for stack, t in zip(stacks, leaves):
+            stack[i] = t
+        del leaves
+    return tree_unflatten(treedef, stacks)
 
 
 def scan_layers(body, init, xs, cfg: ModelConfig):

@@ -1,18 +1,20 @@
-"""Decoder-only transformer LM for the dense (GQA) and VLM families, the
-port of ``repro/models/transformer.py``.
+"""Decoder-only transformer LM for the dense (GQA), MoE and VLM families,
+the port of ``repro/models/transformer.py``.
 
 Layers are homogeneous and stacked on a leading axis; :func:`scan_layers`
-walks them.  KV caches are stacked per layer: (L, B, S_max, KV, HD).
+walks them.  MoE archs with ``first_k_dense`` leading dense layers keep
+those in their own stack (``dense_layers``) and run them first, then the
+MoE layers (``layers``).  KV caches are stacked per layer: (L, B, S_max,
+KV, HD), the leading dense layers' first.
 The prefill's and the loss's attention is
 :func:`repro_torch.kernels.ops.flash_attention` (the hand-written kernel
 on a CUDA tensor, with its backward kernel when a gradient is needed;
 ``causal_attention`` on a CPU tensor); decode attends to the cache with
-the plain ``decode_attention``, as the reference does.  ``lm_loss`` is
-differentiable; ``grad_dtype_guard`` keeps the backward's residual
-stream in the activations' dtype, as the reference's does.
-
-The MoE family (``moe.py``, including MoE archs' ``first_k_dense``
-layers) comes with ``ROADMAP.md`` queue 1, item 15's remainder.
+the plain ``decode_attention``, as the reference does.  The MoE layer
+(:mod:`.moe`) is plain PyTorch, as the reference's is plain JAX.
+``lm_loss`` is differentiable and adds the routers' auxiliary loss;
+``grad_dtype_guard`` keeps the backward's residual stream in the
+activations' dtype, as the reference's does.
 """
 from __future__ import annotations
 
@@ -40,32 +42,35 @@ from .layers import (
     scan_layers,
     stack_layers,
 )
-
-MOE_TODO = "the MoE family: ROADMAP.md queue 1, item 15 (moe.py)"
-
-
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(MOE_TODO)
+from .moe import apply_moe, init_moe
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    return {
+def _init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, device,
+                        moe: bool = False) -> Params:
+    p: Params = {
         "norm1": init_norm(cfg, cfg.d_model, device),
         "attn": init_attention(gen, cfg, device),
         "norm2": init_norm(cfg, cfg.d_model, device),
-        "mlp": init_mlp(gen, cfg, device=device),
     }
+    if moe:
+        p["moe"] = init_moe(gen, cfg, device=device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, device=device)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
-    _no_moe(cfg)
     p: Params = {"embed": init_embedding(gen, cfg, device)}
-    p["layers"] = stack_layers(lambda g: _init_decoder_layer(g, cfg, device), gen, cfg.n_layers)
+    moe = cfg.n_experts > 0
+    if moe and cfg.first_k_dense:
+        p["dense_layers"] = stack_layers(
+            lambda g: _init_decoder_layer(g, cfg, device), gen, cfg.first_k_dense)
+    n_scanned = cfg.n_layers - cfg.first_k_dense if moe else cfg.n_layers
+    p["layers"] = stack_layers(lambda g: _init_decoder_layer(g, cfg, device, moe), gen, n_scanned)
     p["final_norm"] = init_norm(cfg, cfg.d_model, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = init_lm_head(gen, cfg, device)
@@ -90,11 +95,19 @@ def _attn_block(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
     return x + o, (k, v)
 
 
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig):
+    """The layer's MLP or MoE on the normed residual: (y, aux), aux None
+    for an MLP."""
+    if "moe" in p:
+        return apply_moe(p["moe"], h, cfg)
+    return apply_mlp(p["mlp"], h), None
+
+
 def _decoder_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                        sliding_window: Optional[int]):
     x, kv = _attn_block(p, x, cfg, positions, sliding_window)
-    h = apply_norm(p["norm2"], x, cfg.norm_type)
-    return x + apply_mlp(p["mlp"], h), kv
+    y, aux = _ffn(p, apply_norm(p["norm2"], x, cfg.norm_type), cfg)
+    return x + y, aux, kv
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +126,9 @@ def lm_forward(
 
     `sliding_window` overrides cfg.sliding_window (None = full attention).
     With `return_cache`, also returns the stacked (k, v) of every layer —
-    the prefill path.
+    the prefill path.  ``aux_loss`` is the routers' load-balance loss
+    summed over the MoE layers (0 for a dense model).
     """
-    _no_moe(cfg)
     sw = sliding_window if sliding_window is not None else cfg.sliding_window
     x = embed(params["embed"], tokens).to(cfg.activation_dtype)
     if prefix_embeds is not None:
@@ -123,16 +136,26 @@ def lm_forward(
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
 
-    def body(x, layer_p):
-        x, kv = _decoder_layer_fwd(layer_p, x, cfg, positions, sw)
-        return x, (kv if return_cache else None)
+    def body(carry, layer_p):
+        x, aux = carry
+        x, a, kv = _decoder_layer_fwd(layer_p, x, cfg, positions, sw)
+        return (x, aux if a is None else aux + a), (kv if return_cache else None)
 
-    x, kv = scan_layers(body, x, params["layers"], cfg)
+    carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    kvs = []
+    # Leading dense layers (MoE archs only) first, then the stacked rest.
+    for stack in ("dense_layers", "layers"):
+        if stack in params:
+            carry, kv = scan_layers(body, carry, params[stack], cfg)
+            kvs.append(kv)
+    x, aux = carry
     logits = final_logits(params, grad_dtype_guard(x), cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not return_cache:
         return logits, aux
-    return logits, aux, {"k": kv[0], "v": kv[1]}
+    if len(kvs) == 1:
+        return logits, aux, {"k": kvs[0][0], "v": kvs[0][1]}
+    return logits, aux, {"k": torch.cat([kv[0] for kv in kvs]),
+                         "v": torch.cat([kv[1] for kv in kvs])}
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +217,8 @@ def _decode_layer(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], po
         k_full, v_full = cache["k"], cache["v"]
     o = decode_attention(q, k_full, v_full, pos, sliding_window=sliding_window)
     x = x + o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-    h2 = apply_norm(p["norm2"], x, cfg.norm_type)
-    return x + apply_mlp(p["mlp"], h2)
+    y, _ = _ffn(p, apply_norm(p["norm2"], x, cfg.norm_type), cfg)
+    return x + y
 
 
 def lm_decode_step(
@@ -210,8 +233,8 @@ def lm_decode_step(
 
     The reference returns a new cache (and its serve loop donates the old
     one); here the new token's keys and values are written into ``cache``
-    in place, and the same dict is returned."""
-    _no_moe(cfg)
+    in place, and the same dict is returned.  The leading dense layers
+    (MoE archs) hold the cache's first slices."""
     sw = sliding_window if sliding_window is not None else cfg.sliding_window
     pos = int(pos)
     x = embed(params["embed"], token).to(cfg.activation_dtype)
@@ -220,7 +243,13 @@ def lm_decode_step(
         layer_p, layer_cache = inp
         return _decode_layer(layer_p, x, layer_cache, pos, cfg, sw), None
 
-    x, _ = scan_layers(body, x, (params["layers"], cache), cfg)
+    start = 0
+    for stack in ("dense_layers", "layers"):
+        if stack in params:
+            n = params[stack]["attn"]["wq"].shape[0]
+            x, _ = scan_layers(body, x, (params[stack],
+                                         {k: v[start:start + n] for k, v in cache.items()}), cfg)
+            start += n
     return final_logits(params, x, cfg), cache
 
 

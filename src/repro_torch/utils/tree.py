@@ -17,7 +17,7 @@ as a cache key; its ``repr`` is the one JAX gives its ``PyTreeDef``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Sequence, Tuple
 
 Path = Tuple[Any, ...]
 
@@ -103,26 +103,29 @@ def tree_structure(tree: Any) -> TreeDef:
     return tree_flatten(tree)[1]
 
 
+def _build(td: TreeDef, it: Iterator[Any]) -> Any:
+    if td.kind == _LEAF:
+        return next(it)
+    if td.kind == _NONE:
+        return None
+    children = [_build(c, it) for c in td.children]
+    if td.kind == _DICT:
+        return dict(zip(td.keys, children))
+    return children if td.kind == _LIST else tuple(children)
+
+
 def tree_unflatten(treedef: TreeDef, leaves: Sequence[Any]) -> Any:
     """Rebuild a tree of ``treedef``'s structure from leaves in flatten
-    order (dicts come back in sorted-key order, as from ``jax.tree``)."""
-    it = iter(leaves)
-
-    def build(td: TreeDef) -> Any:
-        if td.kind == _LEAF:
-            return next(it)
-        if td.kind == _NONE:
-            return None
-        children = [build(c) for c in td.children]
-        if td.kind == _DICT:
-            return dict(zip(td.keys, children))
-        return children if td.kind == _LIST else tuple(children)
-
+    order (dicts come back in sorted-key order, as from ``jax.tree``).
+    ``_build`` is a module function and not a closure: a recursive
+    closure over the leaves' iterator is a reference cycle, which would
+    hold every leaf (a model's layer stacks) until the cyclic garbage
+    collector ran."""
     if len(leaves) != treedef.num_leaves:
         raise ValueError(
             f"treedef has {treedef.num_leaves} leaves, got {len(leaves)}"
         )
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:

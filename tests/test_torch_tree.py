@@ -1,8 +1,12 @@
 """The port's tree walk visits leaves in jax.tree's order, with the
 reference serializer's path strings."""
+import gc
+import weakref
+
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.checkpoint.serializer import _path_str
 from repro_torch.utils.tree import (
@@ -56,6 +60,26 @@ def test_unflatten_roundtrip_and_sorted_dicts():
     assert tree_flatten(back)[1] == treedef
     doubled = tree_map(lambda a, b: a + b, tree, tree)
     np.testing.assert_array_equal(doubled["a"]["x"][1], 2 * np.ones(7))
+
+
+def test_unflatten_and_map_free_their_leaves_without_the_cycle_collector():
+    """Dropping a rebuilt tree frees its leaves at once: nothing in
+    ``tree_unflatten`` (or ``tree_map``, which calls it) keeps the leaf
+    list in a reference cycle that only ``gc`` would break.  Such a cycle
+    held a served model's layer stacks (30 GB for deepseek-moe-16b) past
+    the model's last use."""
+    _, treedef = tree_flatten({"a": [0, 0], "b": {"c": 0}})
+    gc.disable()
+    try:
+        leaves = [torch.zeros(4) for _ in range(3)]
+        refs = [weakref.ref(t) for t in leaves]
+        tree = tree_unflatten(treedef, leaves)
+        mapped = tree_map(lambda t: t + 1, tree)
+        mapped_refs = [weakref.ref(t) for t in tree_flatten(mapped)[0]]
+        del leaves, tree, mapped
+        assert all(r() is None for r in refs + mapped_refs)
+    finally:
+        gc.enable()
 
 
 def test_unflatten_rejects_wrong_leaf_count():

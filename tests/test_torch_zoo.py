@@ -3,8 +3,8 @@ family: ``prefill`` (through ``make_prefill_step``), several
 ``decode_step``s with their caches (through ``make_serve_step``), the
 forward-only loss, and the serve driver's greedy tokens.
 
-Every ``dense``, ``vlm`` and ``ssm`` config of the repo, reduced and in
-fp32, starts from the reference's weights (``ModelFamily.init`` with a
+Every ``dense``, ``moe``, ``vlm`` and ``ssm`` config of the repo, reduced
+and in fp32, starts from the reference's weights (``ModelFamily.init`` with a
 JAX key, carried over by ``params_from_numpy``) and numpy-seeded tokens.
 Logits agree within 1e-4 (abs and rel): both packages do the same fp32
 arithmetic, summed in other orders through two or more layers, and the
@@ -32,7 +32,8 @@ from repro_torch.models import get_model
 from repro_torch.models import transformer as T
 
 TOL = 1e-4
-SERVED = ["internlm2-1.8b", "yi-9b", "deepseek-7b", "olmo-1b", "internvl2-2b", "mamba2-130m"]
+SERVED = ["internlm2-1.8b", "yi-9b", "deepseek-7b", "olmo-1b", "internvl2-2b", "mamba2-130m",
+          "granite-moe-1b-a400m", "deepseek-moe-16b"]
 
 
 def _close(got, want, tol=TOL):
@@ -92,14 +93,18 @@ def test_prefill_decode_and_loss_match_reference(arch):
             _close(tcache[name], jcache[name])
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-7b", "granite-moe-1b-a400m",
+                                  "deepseek-moe-16b"])
 def test_prefill_cache_then_decode(arch):
     """lm_forward's returned cache is the reference's, and decoding one
     token on it continues the forward (the reference's own check in
-    tests/test_arch_smoke.py)."""
+    tests/test_arch_smoke.py).  MoE archs run at capacity factor E/K, so the
+    forward drops no assignment, as one decoded token never does."""
     jc, tc, jm, tm, jp, tp = _pair(arch, seed=2)
-    tc = tc.with_overrides(kv_cache_dtype="bfloat16")
-    jc = jc.with_overrides(kv_cache_dtype="bfloat16")
+    kw = dict(kv_cache_dtype="bfloat16")
+    if tc.n_experts:
+        kw["moe_capacity_factor"] = tc.n_experts / tc.top_k
+    tc, jc = tc.with_overrides(**kw), jc.with_overrides(**kw)
     jb, tb = _batches(tc, 2, 16, seed=3)
     tl, _, tkv = T.lm_forward(tp, tb["tokens"], tc, return_cache=True)
     jl, _, jkv = JT.lm_forward(jp, jb["tokens"], jc, return_cache=True)
@@ -157,8 +162,7 @@ def test_serve_main_runs_on_cpu(capsys):
     assert len(eval(out.split("generated token ids (first sequence):")[1])) == 3
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "granite-moe-1b-a400m",
-                                  "jamba-1.5-large-398b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-small"])
 def test_unported_families_raise(arch):
     model = get_model(get_config(arch).reduced())
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15"):
@@ -177,12 +181,12 @@ def test_param_counts_match_reference(arch):
 
 
 def test_zoo_entry_points_default_to_the_card():
-    from repro_torch.models import api, layers, mamba2, ssm_lm
+    from repro_torch.models import api, layers, mamba2, moe, ssm_lm
 
     for fn in (api.ModelFamily.init, api.ModelFamily.init_cache, T.init_lm, T.init_kv_cache,
                ssm_lm.init_ssm_lm, ssm_lm.init_ssm_cache, mamba2.init_mamba,
                mamba2.init_mamba_cache, layers.init_norm, layers.init_attention,
-               layers.init_mlp, layers.init_embedding, layers.init_lm_head):
+               layers.init_mlp, layers.init_embedding, layers.init_lm_head, moe.init_moe):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     parser_default = [a for a in inspect.getsource(serve.main).splitlines() if "--device" in a]
     assert 'default="cuda"' in parser_default[0]
