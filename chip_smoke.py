@@ -19,7 +19,9 @@ or of the JAX package.  In order it:
      the CPU tests' sweeps and at the paths' shapes (``dequant_fold`` bit
      for bit, on aligned and misaligned payloads; ``flash_attention`` over
      MHA / GQA / MQA at both head widths, windows inside and across tiles,
-     full attention, ragged S, fp32 and bf16, and olmo-1b's prefill;
+     full attention, ragged S, keys longer or shorter than the queries
+     (full, causal and windowed, one key, one query), fp32 and bf16,
+     olmo-1b's prefill and whisper-small's three attention calls;
      ``ssd_chunk_scan`` over the reference's sweep, head counts and chunks
      off the kernel's tiles, the state continuation, the O(L) recurrence and
      mamba2-130m's prefill);
@@ -27,7 +29,9 @@ or of the JAX package.  In order it:
      launch after warm-up; 4 rounds of 10 launches each of kernel, plain
      version and one PyTorch library call computing the same function,
      where there is one, in alternating order; median and quartiles)
-     beside its bound, with the card's clocks and power after; splits the
+     beside its bound, with the card's clocks and power after (both flash
+     kernels also at whisper-small's encoder, 1500 x 1500, and
+     cross-attention, 448 queries over 1500 keys, against SDPA); splits the
      dense fold at that shape into flatten, reduce and unflatten, and the
      compressed round's server work into encode, wire frame and fold;
   5. runs the dense main path at the paper's FEMNIST width
@@ -55,14 +59,21 @@ or of the JAX package.  In order it:
      runs' logits bit-equal, and the prefill-against-serving check at a
      capacity factor that drops nothing, in bf16 and in fp32 (deepseek-moe
      cut to 2 layers in fp32);
-  9. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
-     deepseek-moe-16b in fp32 on the card and on the CPU from the same
-     weights: prefill logits, greedy tokens and (MoE) every layer's expert
-     choices and keep masks;
+     Then the encoder-decoder family: whisper-small (12 + 12 layers) in
+     bf16, an (8, 448) prefill over (8, 1500, 768) frames with exactly 36
+     flash launches (12 encoder, 12 decoder self, 12 cross with Sk != Sq),
+     timed 5 times and traced once, the serve driver, and the prefill
+     against serving the same tokens one by one from the cross cache that
+     ``decode_forward(return_cache=True)`` fills, in bf16 and in fp32;
+  9. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
+     deepseek-moe-16b and whisper-small in fp32 on the card and on the CPU
+     from the same weights: prefill logits, greedy tokens and (MoE) every
+     layer's expert choices and keep masks;
  10. trains olmo-1b at full width (bf16, (2, 2048) batches): the flash
      backward kernel held against its plain version over the forward's
-     cases and its own tile edges (phase 3; q and k of two lengths
-     refused), timed against SDPA's gradient (phase 4, with each of its
+     cases and its own tile edges, keys longer or shorter than the
+     queries, whisper-small's encoder and cross-attention relaunched
+     bit-equal (phase 3), timed against SDPA's gradient (phase 4, with each of its
      two kernels' device time, and the forward with and without its
      log-sum-exp store), five timed
      ``make_train_step`` steps and one traced, each with 16 forward and 16
@@ -97,11 +108,16 @@ or of the JAX package.  In order it:
      --arch granite-moe-1b-a400m`` with the trainer's defaults (exit 0);
  15. runs 2 FedAvg rounds of 2 granite-moe-1b-a400m silos at full width,
      as phase 13 (``fedavg_reduce`` over L = 1,334,628,352);
- 16. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
-     deepseek-moe-16b in fp32 on the card and on the CPU from the same
-     weights: one train step each, and one federated LoRA round of
-     olmo-1b over 2 silos (adapters within 1e-4, base bit-equal, traces
-     equal).
+ 16. trains whisper-small at full width and depth (bf16, (8, 448) token
+     batches over (8, 1500, 768) frames): two gradients bit-equal, five
+     timed steps and one traced, each with 36 forward and 36 backward flash
+     launches, and ``python -m repro_torch.launch.train --arch
+     whisper-small`` with the trainer's defaults (exit 0);
+ 17. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
+     deepseek-moe-16b and whisper-small in fp32 on the card and on the CPU
+     from the same weights: one train step each, and one federated LoRA
+     round of olmo-1b over 2 silos (adapters within 1e-4, base bit-equal,
+     traces equal).
 For each path every kernel's launch count is set to 0 just before and
 read just after.
 
@@ -140,6 +156,7 @@ KERNELS = ("fedavg_reduce", "dequant_fold", "flash_attention", "flash_attention_
 TRAIN_B, TRAIN_S = 2, 2048      # the zoo's full-width training batch
 TRAIN_STEPS = 5                 # timed train steps, after one warm-up
 LORA_SILOS = 4
+LORA_LAYERS = 4                 # olmo-1b's depth in the LoRA rounds (of 16; full width)
 SSM_B = 4                       # mamba2-130m's training batch (4, 2048)
 MOE_BF16_TOL = 0.2              # MoE prefill against token-by-token serving, bf16 (phase_moe_paths)
 ZOO_SILOS = 2                   # silos of the zoo's FedAvg rounds (mamba2-130m, granite-moe)
@@ -903,11 +920,36 @@ def phase_compressed_reference_check():
 # The model zoo's serve path: flash_attention and ssd_chunk_scan
 # ---------------------------------------------------------------------------
 
-def _qkv(B, S, H, KV, D, dtype, gen):
+def _qkv(B, S, H, KV, D, dtype, gen, Sk=None):
+    """q (B, S, H, D), k and v (B, Sk, KV, D) (Sk = S unless given)."""
     import torch
 
+    Sk = S if Sk is None else Sk
     return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                 for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+                 for shape in ((B, S, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+
+
+# whisper-small's attention calls at the (8, 448) decoder batch over 1500
+# frames: (B, Sq, Sk, H, KV, D, causal) of the encoder's self-attention, the
+# decoder's cross-attention and the decoder's self-attention.
+WHISPER_B, WHISPER_S = 8, 448
+WHISPER_ATTN = {"encoder": (WHISPER_B, 1500, 1500, 12, 12, 64, False),
+                "cross": (WHISPER_B, WHISPER_S, 1500, 12, 12, 64, False),
+                "decoder": (WHISPER_B, WHISPER_S, WHISPER_S, 12, 12, 64, True)}
+
+
+def _two_length_cases(dt) -> list:
+    """(B, Sq, Sk, H, KV, D, causal, window, dtype) with keys longer or
+    shorter than the queries: full, causal and windowed, MHA / GQA / MQA, D
+    64 and 128, both lengths ragged, whisper's 448 x 1500 and 1500 x 1500
+    (at B 2), one key and one query, and a window that leaves the rows from
+    Sk + window - 1 on with no key (they give 0)."""
+    return [(2, 448, 1500, 12, 12, 64, False, None, dt),
+            (2, 1500, 1500, 12, 12, 64, False, None, dt),
+            (1, 300, 130, 4, 2, 128, False, None, dt), (1, 130, 300, 4, 2, 128, True, None, dt),
+            (1, 300, 130, 8, 2, 64, True, None, dt), (1, 200, 100, 4, 2, 64, True, 40, dt),
+            (1, 100, 700, 4, 4, 128, True, 200, dt), (1, 1000, 129, 4, 1, 64, True, 16, dt),
+            (2, 64, 1, 4, 4, 64, False, None, dt), (2, 1, 300, 8, 2, 128, False, None, dt)]
 
 
 def phase_flash_check():
@@ -915,12 +957,14 @@ def phase_flash_check():
     ``full_attention``) on the card: MHA, GQA 4:1 and MQA at head widths 64
     and 128, windows 16, 64 and 100 (inside a 128-key tile) and 200 and 300
     (across tiles), full attention, ragged S (40, 100, 130, 300, 1000: below
-    64 and past multiples of 64 and 128), fp32 (2e-5) and bf16
-    (2e-2; the plain version rounds the softmax weights to bf16, the
-    kernel keeps them in fp32), and the main paths' calls: olmo-1b's
-    and deepseek-moe-16b's prefill (B 4, S 2048, 16 heads of 128, bf16,
-    causal) and granite-moe-1b-a400m's (16 query heads over 8 KV heads of
-    64), whose largest error is returned.
+    64 and past multiples of 64 and 128), keys longer or shorter than the
+    queries (``_two_length_cases``), fp32 (2e-5) and bf16 (2e-2; the plain
+    version rounds the softmax weights to bf16, the kernel keeps them in
+    fp32), and the main paths' calls: olmo-1b's and deepseek-moe-16b's
+    prefill (B 4, S 2048, 16 heads of 128, bf16, causal),
+    granite-moe-1b-a400m's (16 query heads over 8 KV heads of 64) and
+    whisper-small's three (``WHISPER_ATTN``), whose largest error is
+    returned.
 
     A bf16 output is also held, as a whole, against the plain version
     computed in fp32 from the same bf16 inputs: relative L2 within 1e-2.
@@ -948,18 +992,22 @@ def phase_flash_check():
                   (1, 256, 8, 2, 128, True, None, dt), (1, 256, 4, 1, 64, True, None, dt)]
     main_cases = [(PREFILL_B, PREFILL_S, 16, 16, 128, True, None, torch.bfloat16),
                   (PREFILL_B, PREFILL_S, 16, 8, 64, True, None, torch.bfloat16)]
-    cases += main_cases
+    cases = [c[:2] + c[1:] for c in cases + main_cases]   # Sk = S
+    main_cases = [c[:2] + c[1:] for c in main_cases]
+    main_cases += [c + (None, torch.bfloat16) for c in WHISPER_ATTN.values()]
+    cases += (_two_length_cases(torch.float32) + _two_length_cases(torch.bfloat16)
+              + main_cases[2:])
     main_err = 0.0
     for case in cases:
-        B, S, H, KV, D, causal, window, dt = case
-        q, k, v = _qkv(B, S, H, KV, D, dt, gen)
+        B, S, Sk, H, KV, D, causal, window, dt = case
+        q, k, v = _qkv(B, S, H, KV, D, dt, gen, Sk)
         got = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = 2e-2 if dt == torch.bfloat16 else 2e-5
         err = (got.float() - want.float()).abs().max().item()
-        ok = got.dtype == dt and bool(torch.isfinite(got).all()) and torch.allclose(
-            got.float(), want.float(), atol=tol, rtol=tol)
+        ok = (got.dtype == dt and got.shape == q.shape and bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
         l2 = ""
         if dt == torch.bfloat16:
             del want
@@ -968,7 +1016,8 @@ def phase_flash_check():
             rel = rel_l2(got, want)
             ok = ok and rel <= 1e-2
             l2 = f", relative L2 against fp32 plain {rel:.3e} (tol 1e-2)"
-        say(f"[check] flash_attention B={B} S={S} H={H} KV={KV} D={D} "
+        lengths = f"S={S}" if Sk == S else f"Sq={S} Sk={Sk}"
+        say(f"[check] flash_attention B={B} {lengths} H={H} KV={KV} D={D} "
             f"{'causal' if causal else 'full'} window={window} {str(dt)[6:]}: "
             f"max|kernel-plain|={err:.3e} (tol {tol:g} abs+rel){l2} {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention {case} within {tol}")
@@ -1257,26 +1306,85 @@ def _choices_differ(prefill_calls, serve_calls, batch: int, prompt_len: int) -> 
     return (pre.sort(-1).values != dec.sort(-1).values).float().mean().item()
 
 
+def _timed_prefills(prefill, params, batch) -> tuple:
+    """PREFILL_RUNS timed calls of ``prefill(params, batch)`` (host clock
+    ending in a synchronize), every kernel's count set to 0 just before
+    each and read just after: (times, the counts of each run, the last
+    run's logits, the first and last runs' logits bit-equal, peak bytes)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    times, all_launches, first, logits = [], [], None, None
+    for _ in range(PREFILL_RUNS):
+        logits = None
+        zero_counts()
+        t0 = time.monotonic()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        all_launches.append(counts())
+        if first is None:
+            first = logits
+    return (times, all_launches, logits, torch.equal(first, logits),
+            torch.cuda.max_memory_allocated())
+
+
+def _prompt_batch(rng, cfg, batch: int, seq: int) -> dict:
+    """A (batch, seq) batch of tokens from the numpy generator, and for an
+    encoder-decoder the (batch, encoder_seq, d_model) frames after them."""
+    import torch
+
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).cuda()}
+    if cfg.arch_type == "encdec":
+        out["frames"] = _frames(rng, batch, cfg)
+    return out
+
+
+def _serve_cache(model, params, batch: dict, max_len: int):
+    """The cache the serve driver starts from: None (``generate`` makes the
+    empty one) but for an encoder-decoder, whose cross K/V are filled from
+    ``decode_forward(..., return_cache=True)`` over the frames' encoding, the
+    reference's own source for them (its serve driver decodes against the
+    zeroed cross cache ``init_cache`` gives, which no prefill matches)."""
+    import torch
+    from repro_torch.models import encdec
+
+    cfg = model.cfg
+    if cfg.arch_type != "encdec":
+        return None
+    with torch.no_grad():
+        memory = encdec.encode(params, batch["frames"], cfg)
+        _, fill = encdec.decode_forward(params, batch["tokens"], memory, cfg, return_cache=True)
+    cache = model.init_cache(batch["tokens"].shape[0], max_len, "cuda")
+    cache["k_cross"].copy_(fill["k_cross"])
+    cache["v_cross"].copy_(fill["v_cross"])
+    return cache
+
+
 def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, kernel: str,
-                 per_prefill: int, tol: float, full_prefill: bool,
-                 overrides: "dict | None" = None, check_overrides: "dict | None" = None) -> dict:
+                 tol: float, full_prefill: bool, overrides: "dict | None" = None,
+                 check_overrides: "dict | None" = None,
+                 shape: tuple = (PREFILL_B, PREFILL_S)) -> dict:
     """One zoo model at full width on the card, weights random from seed 0
-    (``overrides`` applied to its config, e.g. a cut depth):
-    ``prefill_step`` on a (4, 2048) batch, PREFILL_RUNS times after a
-    warm-up (``full_prefill``; median and quartiles; the first and last
-    runs' logits compared bit for bit) and once more under
-    the profiler (device busy time and idle share), then the serve
-    driver (token-by-token prefill of a (4, prompt_len) prompt through
-    ``serve_step``, then greedy decoding), then ``prefill_step`` on that
-    prompt, whose logits must agree with the token-by-token ones at every
-    prompt position within ``tol`` (relative L2 over the whole tensor).
-    Both runs of that check use the config with ``check_overrides`` (an
-    MoE model's capacity factor at which its prefill drops nothing, as
-    decoding one token never does).  Every kernel's count is set to 0 just
-    before each run and read just after: ``kernel`` launches
-    ``per_prefill`` times a prefill and never in decode.  For an MoE model
-    the warm-up prefill counts its dropped assignments, and the check
-    prints the share of expert choices that differ between its two runs."""
+    (``overrides`` applied to its config, e.g. a cut depth), batches from
+    ``numpy.random.default_rng(0)`` (``_prompt_batch``: tokens, and frames
+    for an encoder-decoder): ``prefill_step`` on a ``shape`` batch
+    (default (4, 2048)), PREFILL_RUNS times after a warm-up
+    (``full_prefill``; median and quartiles; the first and last runs'
+    logits equal bit for bit) and once more under the profiler (device
+    busy time and idle share), then the serve driver (token-by-token
+    prefill of a (shape[0], prompt_len) prompt through ``serve_step``,
+    then greedy decoding, from ``_serve_cache``), then ``prefill_step`` on
+    that prompt, whose logits must agree with the token-by-token ones at
+    every prompt position within ``tol`` (relative L2 over the whole
+    tensor).  Both runs of that check use the config with
+    ``check_overrides`` (an MoE model's capacity factor at which its
+    prefill drops nothing, as decoding one token never does).  Every
+    kernel's count is set to 0 just before each run and read just after:
+    ``kernel`` launches ``_attention_launches`` times a prefill (and a
+    cache fill) and never in decode.  For an MoE model the warm-up prefill
+    counts its dropped assignments, and the check prints the share of
+    expert choices that differ between its two runs."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1292,9 +1400,11 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
     init_peak = torch.cuda.max_memory_allocated()
     n_params = model.param_count(params)
     prefill = make_prefill_step(model)
+    per_prefill = _attention_launches(cfg)
     only = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(0)
     moe = cfg.n_experts > 0
+    B, S = shape
     out = {"arch": arch, "dtype": dtype, "params": n_params, "n_layers": cfg.n_layers,
            "init_peak_bytes": init_peak}
     tag = f"[zoo] {arch} {dtype}" + (f" ({cfg.n_layers} layers)" if overrides else "")
@@ -1302,86 +1412,80 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
         f"max_memory_allocated at init {init_peak / 2**30:.2f} GiB")
 
     if full_prefill:
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+        batch = _prompt_batch(rng, cfg, B, S)
+        over = (f" over {tuple(batch['frames'].shape)} frames" if "frames" in batch else "")
         with recorded_routing() as rec:   # warm-up: cuBLAS and the kernels' first load
-            prefill(params, {"tokens": tokens})
+            prefill(params, batch)
         torch.cuda.synchronize()
         if moe:
-            capacity = _moe_module().capacity_for(cfg, PREFILL_B * PREFILL_S,
-                                                  cfg.moe_capacity_factor)
-            n_assign = len(rec.calls) * PREFILL_B * PREFILL_S * cfg.top_k
+            capacity = _moe_module().capacity_for(cfg, B * S, cfg.moe_capacity_factor)
+            n_assign = len(rec.calls) * B * S * cfg.top_k
             out.update(dropped=rec.dropped(), assignments=n_assign, capacity=capacity)
-            say(f"{tag}: prefill ({PREFILL_B}, {PREFILL_S}) at capacity factor "
+            say(f"{tag}: prefill ({B}, {S}) at capacity factor "
                 f"{cfg.moe_capacity_factor}: capacity {capacity} slots an expert, buffers "
                 f"({cfg.n_experts}, {capacity}, {cfg.d_model}); dropped {out['dropped']:,} of "
                 f"{n_assign:,} assignments ({out['dropped'] / n_assign:.3%}) over "
                 f"{len(rec.calls)} MoE layers")
         del rec
-        torch.cuda.reset_peak_memory_stats()
-        times, all_launches = [], []
-        first = None
-        for _ in range(PREFILL_RUNS):
-            logits = None
-            zero_counts()
-            t0 = time.monotonic()
-            logits = prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-            times.append(time.monotonic() - t0)
-            all_launches.append(counts())
-            if first is None:
-                first = logits
+        times, all_launches, logits, bit_equal, peak = _timed_prefills(prefill, params, batch)
         launches = all_launches[-1]
-        peak = torch.cuda.max_memory_allocated()
         finite = bool(torch.isfinite(logits).all())
-        bit_equal = torch.equal(first, logits)
-        del first
         q1, med, q3 = quartiles(times)
-        say(f"{tag}: prefill_step on ({PREFILL_B}, {PREFILL_S}) median "
+        say(f"{tag}: prefill_step on ({B}, {S}){over} median "
             f"{med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over {PREFILL_RUNS} "
             f"runs (each {', '.join(f'{t * 1e3:.1f}' for t in times)}), logits "
             f"{tuple(logits.shape)} {str(logits.dtype)[6:]} finite={finite}; first and last "
             f"runs' logits bit-equal: {bit_equal}; launches a run "
             f"{launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
-        check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, cfg.vocab_size)
+        check(tuple(logits.shape) == (B, S, cfg.vocab_size)
               and logits.dtype == torch.float32 and finite, f"{arch} prefill logits")
         check(all(n == only | {kernel: per_prefill} for n in all_launches),
               f"{arch} prefill: exactly {per_prefill} {kernel} launches a run, got {all_launches}")
-        if moe:
-            check(bit_equal, f"{arch}: two prefills of the same batch are bit-equal")
+        check(bit_equal, f"{arch}: two prefills of the same batch are bit-equal")
         out.update(prefill_s=med, prefill_s_quartiles=(q1, med, q3), prefill_s_runs=times,
                    prefill_launches=launches, prefill_peak_bytes=peak,
                    prefill_bit_equal=bit_equal)
         zero_counts()
-        out["prefill_trace"] = _trace_prefill(lambda: prefill(params, {"tokens": tokens}), tag)
+        out["prefill_trace"] = _trace_prefill(lambda: prefill(params, batch), tag)
         check(counts() == only | {kernel: per_prefill}, f"{arch} traced prefill launches")
-        del logits, tokens
+        del logits, batch
 
     if check_overrides:
         cfg = cfg.with_overrides(**check_overrides)
         model = get_model(cfg)
         prefill = make_prefill_step(model)
         say(f"{tag}: the serving check runs with {check_overrides}")
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PREFILL_B, prompt_len))).cuda()
+    prompt = _prompt_batch(rng, cfg, B, prompt_len)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    cache = _serve_cache(model, params, prompt, prompt_len + decode_tokens)
+    fill_launches = counts()
+    check(fill_launches == (only if cache is None else only | {kernel: per_prefill}),
+          f"{arch} serve cache fill launches {fill_launches}")
+    zero_counts()
     with recorded_routing() as served:
-        res = generate(model, params, prompt, decode_tokens, keep_prompt_logits=True)
+        res = generate(model, params, prompt["tokens"], decode_tokens, keep_prompt_logits=True,
+                       cache=cache)
     serve_launches = counts()
     peak = torch.cuda.max_memory_allocated()
     ms_tok = res.decode_s / max(decode_tokens - 1, 1) * 1e3
-    say(f"{tag}: serve driver, ({PREFILL_B}, {prompt_len}) prompt token by token in "
-        f"{res.prefill_s:.3f} s, {decode_tokens} tokens decoded at {ms_tok:.2f} ms/token; "
+    filled = "" if cache is None else (
+        f" from the cross cache decode_forward(return_cache=True) fills (launches "
+        f"{fill_launches})")
+    say(f"{tag}: serve driver, ({B}, {prompt_len}) prompt token by token in "
+        f"{res.prefill_s:.3f} s{filled}, {decode_tokens} tokens decoded at {ms_tok:.2f} ms/token; "
         f"launches {serve_launches}; first sequence {res.tokens[0].tolist()}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     check(serve_launches == only, f"{arch} serve: no kernel launch, got {serve_launches}")
-    check(tuple(res.tokens.shape) == (PREFILL_B, decode_tokens)
+    check(tuple(res.tokens.shape) == (B, decode_tokens)
           and bool(torch.isfinite(res.last_logits).all()), f"{arch} serve output")
     if moe:
         check(not served.dropped(), f"{arch}: token-by-token serving drops no assignment")
+    del cache
 
     zero_counts()
     with recorded_routing() as pre:
-        logits = prefill(params, {"tokens": prompt})
+        logits = prefill(params, prompt)
     launches = counts()
     err = rel_l2(logits, res.prompt_logits)
     max_abs = (logits - res.prompt_logits).abs().max().item()
@@ -1389,7 +1493,7 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
     routing = ""
     if moe:
         out["prompt_dropped"] = pre.dropped()
-        out["choices_differ"] = _choices_differ(pre.calls, served.calls, PREFILL_B, prompt_len)
+        out["choices_differ"] = _choices_differ(pre.calls, served.calls, B, prompt_len)
         routing = (f"; expert choices that differ {out['choices_differ']:.4%}, prefill "
                    f"dropped {out['prompt_dropped']}")
         check(out["prompt_dropped"] == 0, f"{arch}: the check's prefill drops nothing")
@@ -1404,7 +1508,7 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
                serve_peak_bytes=peak,
                prefill_vs_serve_rel_l2=err, prefill_vs_serve_max_abs=max_abs,
                argmax_agreement=agree, tokens_first_sequence=res.tokens[0].tolist())
-    del params, logits, res, served, pre
+    del params, logits, res, served, pre, prompt
     torch.cuda.empty_cache()
     return out
 
@@ -1427,15 +1531,48 @@ def phase_zoo_paths():
     0.5 there, which catches only gross faults (the fp32 check holds the
     scan tightly)."""
     out = {}
-    out["olmo-1b bf16"] = _serve_check("olmo-1b", "bfloat16", 32, 16, "flash_attention", 16,
+    out["olmo-1b bf16"] = _serve_check("olmo-1b", "bfloat16", 32, 16, "flash_attention",
                                        5e-2, True)
     out["mamba2-130m bf16"] = _serve_check("mamba2-130m", "bfloat16", 256, 16, "ssd_chunk_scan",
-                                           24, 0.5, True)
-    out["olmo-1b fp32"] = _serve_check("olmo-1b", "float32", 32, 2, "flash_attention", 16,
+                                           0.5, True)
+    out["olmo-1b fp32"] = _serve_check("olmo-1b", "float32", 32, 2, "flash_attention",
                                        1e-3, False)
     out["mamba2-130m fp32"] = _serve_check("mamba2-130m", "float32", 256, 2, "ssd_chunk_scan",
-                                           24, 1e-3, False)
+                                           1e-3, False)
     return out
+
+
+def _frames(rng, batch: int, cfg, device="cuda"):
+    """(batch, encoder_seq, d_model) stub frame embeddings, N(0, 1) from the
+    numpy generator, in the activation dtype (as the trainer draws them)."""
+    import torch
+
+    return torch.from_numpy(rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model))).to(
+        device, cfg.activation_dtype)
+
+
+def _attention_launches(cfg) -> int:
+    """Kernel launches of one prefill (or one backward): one a layer (its
+    attention, or its scan), and for an encoder-decoder the encoder's layers
+    plus two a decoder layer (self and cross)."""
+    if cfg.arch_type == "encdec":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def phase_encdec_paths():
+    """whisper-small's serve path at full width and depth (``_serve_check``):
+    in bf16 (the config's dtype) with the timed and traced (8, 448) prefill
+    over (8, 1500, 768) frames (36 flash launches: 12 encoder, 12 decoder
+    self, 12 cross) and the serve driver on an (8, 32) prompt from the
+    filled cross cache (``_serve_cache``), then the prefill-against-serving
+    check again in fp32.  Tolerances as for the other families
+    (``phase_zoo_paths``): 5e-2 in bf16, 1e-3 in fp32."""
+    shape = (WHISPER_B, WHISPER_S)
+    return {"whisper-small bf16": _serve_check("whisper-small", "bfloat16", 32, 16,
+                                               "flash_attention", 5e-2, True, shape=shape),
+            "whisper-small fp32": _serve_check("whisper-small", "float32", 32, 2,
+                                               "flash_attention", 1e-3, False, shape=shape)}
 
 
 def _drop_free(arch: str) -> dict:
@@ -1471,25 +1608,26 @@ def phase_moe_paths():
     dispatch or combine moves the logits by O(1).  The share of choices
     that differ is printed.  The fp32 checks hold the MoE path tightly."""
     out = {}
-    for arch, per, decode in (("granite-moe-1b-a400m", 24, 16), ("deepseek-moe-16b", 28, 4)):
-        out[f"{arch} bf16"] = _serve_check(arch, "bfloat16", 32, decode, "flash_attention", per,
+    for arch, decode in (("granite-moe-1b-a400m", 16), ("deepseek-moe-16b", 4)):
+        out[f"{arch} bf16"] = _serve_check(arch, "bfloat16", 32, decode, "flash_attention",
                                            MOE_BF16_TOL, True, check_overrides=_drop_free(arch))
     out["granite-moe-1b-a400m fp32"] = _serve_check(
-        "granite-moe-1b-a400m", "float32", 32, 2, "flash_attention", 24, 1e-3, False,
+        "granite-moe-1b-a400m", "float32", 32, 2, "flash_attention", 1e-3, False,
         check_overrides=_drop_free("granite-moe-1b-a400m"))
     out["deepseek-moe-16b fp32"] = _serve_check(
-        "deepseek-moe-16b", "float32", 32, 2, "flash_attention", 2, 1e-3, False,
+        "deepseek-moe-16b", "float32", 32, 2, "flash_attention", 1e-3, False,
         overrides={"n_layers": 2}, check_overrides=_drop_free("deepseek-moe-16b"))
     return out
 
 
 def phase_zoo_reference_check():
-    """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
-    deepseek-moe-16b in fp32 from the same weights on the card (kernels)
-    and on the CPU (plain versions): prefill logits on a (2, 64) batch
-    within 1e-4 (abs and rel; fp32 summed in other orders, the CPU parity
-    tests' tolerance), the serve driver's greedy tokens equal, and for the
-    MoE models every layer's expert choices and keep mask equal (at the
+    """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
+    deepseek-moe-16b and whisper-small in fp32 from the same weights on the
+    card (kernels) and on the CPU (plain versions): prefill logits on a
+    (2, 64) batch (whisper's over (2, 16, 256) frames) within 1e-4 (abs
+    and rel; fp32 summed in other orders, the CPU parity tests'
+    tolerance), the serve driver's greedy tokens equal, and for the MoE
+    models every layer's expert choices and keep mask equal (at the
     configs' capacity factor, where this batch drops assignments)."""
     import numpy as np
     import torch
@@ -1502,19 +1640,22 @@ def phase_zoo_reference_check():
     out = {}
     for arch, kernel in (("olmo-1b", "flash_attention"), ("mamba2-130m", "ssd_chunk_scan"),
                          ("granite-moe-1b-a400m", "flash_attention"),
-                         ("deepseek-moe-16b", "flash_attention")):
+                         ("deepseek-moe-16b", "flash_attention"),
+                         ("whisper-small", "flash_attention")):
         cfg = get_config(arch).reduced().with_overrides(dtype="float32", param_dtype="float32")
         model = get_model(cfg)
         params = model.init(torch.Generator().manual_seed(3), "cpu")
         rng = np.random.default_rng(4)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))}
+        if cfg.arch_type == "encdec":
+            batch["frames"] = _frames(rng, 2, cfg, "cpu")
         prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
         runs = {}
         for device in ("cuda", "cpu"):
             p = tree_map(lambda t: t.to(device), params)
             zero_counts()
             with recorded_routing() as rec:
-                logits = make_prefill_step(model)(p, {"tokens": tokens.to(device)})
+                logits = make_prefill_step(model)(p, tree_map(lambda t: t.to(device), batch))
             toks = generate(model, p, prompt.to(device), 6).tokens
             runs[device] = (logits.cpu(), toks.cpu(), counts()[kernel],
                             [(i.cpu(), k.cpu()) for i, k in rec.calls])
@@ -1535,8 +1676,9 @@ def phase_zoo_reference_check():
             f"(tol 1e-4 abs+rel) {'ok' if ok else 'FAIL'}; greedy tokens equal: "
             f"{torch.equal(ct, pt)}; {kernel} launches card {cn}, cpu {pn}" + routing)
         check(ok and same, f"reduced {arch}: card agrees with the CPU")
-        check(cn == cfg.n_layers and pn == 0, f"{arch}: the card run launched the kernel once a "
-              f"layer, the CPU run not at all")
+        check(cn == _attention_launches(cfg) and pn == 0, f"{arch}: the card run launched the "
+              f"kernel once a layer (an encoder-decoder's decoder layer twice), the CPU run not "
+              f"at all")
         out[arch] = {"max_logits_diff": err, "tokens_equal": torch.equal(ct, pt)}
     return out
 
@@ -1553,25 +1695,36 @@ def _flash_module():
     return sys.modules["repro_torch.kernels.flash_attention"]
 
 
+def _lse_err(got, want) -> float:
+    """max |got - want| of two log-sum-exps, a row with no key in range
+    (+inf in both) counting 0; NaN anywhere in ``got`` gives NaN."""
+    import torch
+
+    return torch.where(got == want, 0.0, (got - want).abs()).max().item()
+
+
 def phase_flash_bwd_check():
     """The backward kernel against ``flash_attention_bwd_plain`` computed in
     fp32 from the same inputs (the forward kernel's output and log-sum-exp,
-    the same dO): the main paths' calls, olmo-1b's shape (4, 2048, 16, 128)
-    and granite-moe-1b-a400m's (4, 2048, 16 query heads over 8 KV heads of
-    64), causal bf16, each also relaunched and held bit-equal; then GQA
-    (32 query heads on 8, and 8:1), D 64, a window across
-    tiles and one narrower than a 64-row tile, full attention, ragged S
-    (1000, 130 and 1) and S at the bf16 kernels' tile edges (63, 64, 65,
-    127, 128, 129), the fp32 path, and a q whose base is off 16 bytes; then
-    q and k of two lengths, which the forward and the backward must refuse
-    before any launch.  bf16: relative L2 <= 1e-2 per gradient;
-    fp32: within 2e-5 of each gradient's max |.|.  At S = 1, dq and dk are
-    0 in exact arithmetic (one key: P = 1 and dP = Delta), so they are held
-    within 1e-2 (bf16) / 2e-5 (fp32) of max|dv| instead.  The forward's
-    log-sum-exp is held against ``attention_lse_plain`` within 2e-5 of its
-    scale, and the forward's output with the log-sum-exp stored must equal
-    the output without it bit for bit.  Returns the largest |kernel - plain|
-    over the three gradients at the main paths' shapes."""
+    the same dO): the main paths' calls, olmo-1b's shape (4, 2048, 16, 128),
+    granite-moe-1b-a400m's (4, 2048, 16 query heads over 8 KV heads of
+    64), causal bf16, and whisper-small's three (``WHISPER_ATTN``: the
+    encoder's (8, 1500 x 1500, 12, 64) and the cross-attention's (8, 448
+    queries over 1500 keys), full, and the decoder's (8, 448 x 448)
+    causal), bf16, each also relaunched and held bit-equal; then GQA (32 query heads on 8, and
+    8:1), D 64, a window across tiles and one narrower than a 64-row tile,
+    full attention, ragged S (1000, 130 and 1) and S at the bf16 kernels'
+    tile edges (63, 64, 65, 127, 128, 129), keys longer or shorter than
+    the queries (``_two_length_cases`` in bf16 and fp32), the fp32 path,
+    and a q whose base is off 16 bytes.  bf16: relative L2 <= 1e-2 per
+    gradient; fp32: within 2e-5 of each gradient's max |.|.  With one key,
+    dq and dk are 0 in exact arithmetic (P = 1 and dP = Delta), so they are
+    held within 1e-2 (bf16) / 2e-5 (fp32) of max|dv| instead.  The
+    forward's log-sum-exp is held against ``attention_lse_plain`` within
+    2e-5 of its scale (+inf in both for a row with no key in range), and
+    the forward's output with the log-sum-exp stored must equal the output
+    without it bit for bit.  Returns the largest |kernel - plain| over the
+    three gradients at the main paths' shapes."""
     import torch
 
     fa = _flash_module()
@@ -1600,10 +1753,14 @@ def phase_flash_bwd_check():
              (1, 1000, 4, 2, 128, True, 100, f32),
              (2, 130, 4, 4, 128, False, None, f32),
              (1, 1, 4, 4, 64, True, None, f32)]
+    cases = [c[:2] + c[1:] for c in cases]   # Sk = S
+    main_cases = [c[:2] + c[1:] for c in main_cases]
+    main_cases += [c + (None, bf) for c in WHISPER_ATTN.values()]
+    cases = main_cases + cases[2:] + _two_length_cases(bf) + _two_length_cases(f32)
     main_err = 0.0
     for case in cases:
-        B, S, H, KV, D, causal, window, dt = case
-        q, k, v = _qkv(B, S, H, KV, D, dt, gen)
+        B, S, Sk, H, KV, D, causal, window, dt = case
+        q, k, v = _qkv(B, S, H, KV, D, dt, gen, Sk)
         dout = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
         lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
         o = fa._launch(q, k, v, causal, window, lse=lse)
@@ -1611,8 +1768,10 @@ def phase_flash_bwd_check():
         got = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
         torch.cuda.synchronize()
         lse_want = fa.attention_lse_plain(q.float(), k.float(), causal, window)
-        lse_err = (lse - lse_want).abs().max().item()
-        ok = torch.equal(o, o_plain_fwd) and lse_err <= 2e-5 * max(1.0, lse_want.abs().max().item())
+        lse_err = _lse_err(lse, lse_want)
+        finite = torch.isfinite(lse_want)
+        ok = torch.equal(o, o_plain_fwd) and lse_err <= 2e-5 * max(
+            1.0, lse_want[finite].abs().max().item() if finite.any() else 0.0)
         want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
                                             dout.float(), causal, window)
         tol = 1e-2 if dt == bf else 2e-5
@@ -1622,7 +1781,7 @@ def phase_flash_bwd_check():
             ok = ok and g.dtype == dt and g.shape == w.shape and bool(torch.isfinite(g).all())
             err = (g.float() - w).abs().max().item()
             errs.append(err)
-            if S == 1 and name != "dv":
+            if Sk == 1 and name != "dv":
                 score = err / dv_scale
             elif dt == bf:
                 score = rel_l2(g, w)
@@ -1630,9 +1789,10 @@ def phase_flash_bwd_check():
                 score = err / max(1.0, w.abs().max().item())
             scores.append(score)
             ok = ok and score <= tol
-        measure = ("max|.|/max|dv|" if S == 1 else
+        measure = ("max|.|/max|dv|" if Sk == 1 else
                    "relative L2" if dt == bf else "max|kernel-plain|/max(1,max|plain|)")
-        say(f"[check] flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} "
+        lengths = f"S={S}" if Sk == S else f"Sq={S} Sk={Sk}"
+        say(f"[check] flash_attention_bwd B={B} {lengths} H={H} KV={KV} D={D} "
             f"{'causal' if causal else 'full'} window={window} {str(dt)[6:]}: {measure} "
             + ", ".join(f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), scores))
             + f" (tol {tol:g}); lse max|diff| {lse_err:.3e}; output with lse stored "
@@ -1642,7 +1802,7 @@ def phase_flash_bwd_check():
             main_err = max(main_err, *errs)
             again = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            say(f"[check] flash_attention_bwd at {case[:5]}, a second launch on the same "
+            say(f"[check] flash_attention_bwd at {case[:6]}, a second launch on the same "
                 f"inputs: bit-equal {same} (one writer per output, no atomics)")
             check(same, "flash_attention_bwd is deterministic")
             del again
@@ -1662,29 +1822,6 @@ def phase_flash_bwd_check():
     say(f"[check] flash_attention_bwd q based 2 bytes past 16: equal to the aligned copy's "
         f"gradients {same} {'ok' if same else 'FAIL'}")
     check(same, "flash_attention_bwd on a misaligned q")
-
-    # q of 128 positions over k and v of 256 (or 64): the kernels read one
-    # length, so every wrapper refuses it before a launch.
-    q = torch.randn((1, 128, 4, 64), generator=gen, device="cuda").to(bf)
-    lse = torch.zeros((1, 4, 128), device="cuda")
-    before = counts()
-    refused = []
-    for sk in (256, 64):
-        k, v = (torch.randn((1, sk, 4, 64), generator=gen, device="cuda").to(bf) for _ in range(2))
-        for call in (lambda: fa.flash_attention(q, k, v, causal=False),
-                     lambda: fa.flash_attention(q.clone().requires_grad_(True), k, v, causal=False),
-                     lambda: fa.flash_attention_bwd(q, k, v, q, lse, q, causal=False)):
-            try:
-                call()
-                refused.append(False)
-            except ValueError:
-                refused.append(True)
-    torch.cuda.synchronize()
-    ok = all(refused) and counts() == before
-    say(f"[check] flash_attention forward / backward with q of 128 and k of 256 or 64 positions: "
-        f"refused {sum(refused)} of {len(refused)} calls, no launch {counts() == before} "
-        f"{'ok' if ok else 'FAIL'}")
-    check(ok, "q and k of two lengths are refused before any launch")
     return main_err
 
 
@@ -1769,45 +1906,47 @@ def phase_flash_bwd_timing():
     return row
 
 
-def phase_flash_gqa_timing():
-    """Both flash kernels at granite-moe-1b-a400m's attention shape: q
-    (4, 2048, 16, 64), k and v (4, 2048, 8, 64), bf16, causal (GQA 2:1 at
-    head width 64).  Forward: kernel, plain version and
-    ``F.scaled_dot_product_attention(enable_gqa=True)``; backward: kernel,
-    plain version and SDPA's forward + backward less its forward, each in
-    alternating rounds.  Bounds as at olmo-1b's shape: the forward's
-    2·B·H·D·S·(S+1) flops (H the query heads), the backward's 2.5 times
-    that, on the bf16 tensor cores' 989 TFLOP/s; bytes q, k, v, o (and dO,
-    the log-sum-exp, dq, dk, dv for the backward) read or written once."""
+def _flash_shape_timing(what: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
+                        causal: bool, gen) -> dict:
+    """Both flash kernels at one attention shape, bf16: q (B, Sq, H, D) over
+    k, v (B, Sk, KV, D).  Forward: kernel, plain version and
+    ``F.scaled_dot_product_attention`` (``enable_gqa`` where KV < H);
+    backward: kernel, plain version and SDPA's forward + backward less its
+    forward, each in alternating rounds.  Bounds: the forward's two
+    products, 2·B·H·D·S·(S+1) flops causal (Sq = Sk = S) and 4·B·H·D·Sq·Sk
+    full (H the query heads), the backward's five 2.5 times that, on the
+    bf16 tensor cores' 989 TFLOP/s; bytes q, k, v, o (and dO, the
+    log-sum-exp, dq, dk, dv for the backward) read or written once."""
     import torch
     import torch.nn.functional as F
 
     fa = _flash_module()
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    B, S, H, KV, D = PREFILL_B, PREFILL_S, 16, 8, 64
-    q, k, v = _qkv(B, S, H, KV, D, torch.bfloat16, gen)
-    what = f"granite-moe-1b-a400m ({B}, {S}, {H} q / {KV} KV heads, {D}) bf16 causal"
+    q, k, v = _qkv(B, Sq, H, KV, D, torch.bfloat16, gen, Sk)
+    lengths = f"{Sq}" if Sq == Sk else f"{Sq} q / {Sk} k"
+    heads = f"{H}" if KV == H else f"{H} q / {KV} KV heads"
+    what = f"{what} ({B}, {lengths}, {heads}, {D}) bf16 {'causal' if causal else 'full'}"
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=KV != H)
 
     def sdpa_fwd():
         with torch.no_grad():
             sdpa()
 
-    q4, n = alternating({"kernel": lambda: fa.flash_attention(q, k, v),
-                         "plain": lambda: fa.flash_attention_plain(q, k, v),
+    q4, n = alternating({"kernel": lambda: fa.flash_attention(q, k, v, causal=causal),
+                         "plain": lambda: fa.flash_attention_plain(q, k, v, causal=causal),
                          "library": sdpa_fwd})
-    fwd_flops = 2 * B * H * D * S * (S + 1)
-    q_bytes, kv_bytes = B * S * H * D * 2, B * S * KV * D * 2
+    fwd_flops = 2 * B * H * D * Sq * (Sq + 1) if causal else 4 * B * H * D * Sq * Sk
+    q_bytes, kv_bytes = B * Sq * H * D * 2, B * Sk * KV * D * 2
+    library = f"F.scaled_dot_product_attention(is_causal={causal}, enable_gqa={KV != H})"
     fwd = _bound_row(q4, n, fwd_flops, BF16_FLOPS_PER_S, 2 * q_bytes + 2 * kv_bytes,
-                     f"flash_attention {what}",
-                     "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)")
+                     f"flash_attention {what}", library)
 
-    dout = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
-    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
-    o = fa._launch(q, k, v, True, None, lse=lse)
+    dout = torch.randn((B, Sq, H, D), generator=gen, device="cuda").bfloat16()
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    o = fa._launch(q, k, v, causal, None, lse=lse)
     dot = dout.transpose(1, 2)
 
     def sdpa_fwd_bwd():
@@ -1815,22 +1954,39 @@ def phase_flash_gqa_timing():
         sdpa().backward(dot)
 
     q4, n = alternating({
-        "kernel": lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout),
-        "plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, dout),
+        "kernel": lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal),
+        "plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal=causal),
         "library": sdpa_fwd_bwd,
         "library_fwd": sdpa_fwd,
     })
     lib = q4["library"][1] - q4["library_fwd"][1]
     bwd = _bound_row(q4, n, 2.5 * fwd_flops, BF16_FLOPS_PER_S,
-                     4 * q_bytes + 4 * kv_bytes + B * H * S * 4,
-                     f"flash_attention_bwd {what}", "F.scaled_dot_product_attention forward + backward")
+                     4 * q_bytes + 4 * kv_bytes + B * H * Sq * 4,
+                     f"flash_attention_bwd {what}", f"{library} forward + backward")
     bwd["library_ms"], bwd["library_fwd_ms"] = lib, q4["library_fwd"][1]
-    say(f"[time] at granite's shape: the forward is {fwd['ms'] / fwd['library_ms']:.2f}x SDPA; "
-        f"SDPA's gradient alone (forward + backward {q4['library'][1]:.4f} ms minus its forward "
+    say(f"[time] {what}: the forward is {fwd['ms'] / fwd['library_ms']:.2f}x SDPA; SDPA's "
+        f"gradient alone (forward + backward {q4['library'][1]:.4f} ms minus its forward "
         f"{q4['library_fwd'][1]:.4f} ms) {lib:.4f} ms, the backward kernel {bwd['ms'] / lib:.2f}x it")
     del q, k, v, o, dout, lse, qt, kt, vt
     torch.cuda.empty_cache()
     return {"forward": fwd, "backward": bwd}
+
+
+def phase_flash_shape_timing():
+    """Both flash kernels (``_flash_shape_timing``) at granite-moe-1b-a400m's
+    attention, q (4, 2048, 16, 64) over k, v (4, 2048, 8, 64), causal (GQA
+    2:1 at head width 64), and at whisper-small's two full-attention shapes
+    (``WHISPER_ATTN``): the encoder's (8, 1500 x 1500, 12, 64) and the
+    decoder's cross-attention, 448 queries over 1500 keys."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {"granite-moe-1b-a400m": _flash_shape_timing(
+        "granite-moe-1b-a400m", PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 64, True, gen)}
+    for name in ("encoder", "cross"):
+        out[f"whisper-small {name}"] = _flash_shape_timing(f"whisper-small {name}",
+                                                           *WHISPER_ATTN[name], gen)
+    return out
 
 
 def _device_ms(fn, n: int = 5) -> dict:
@@ -2009,7 +2165,8 @@ def _lora_setup(cfg, device, seed_w: int, seed_a: int, silos, opt_fn):
 
 def phase_lora_rounds():
     """Federated LoRA at full width: olmo-1b in bf16 ``with_lora(2)`` (rank-2
-    adapters on wq, wk, wv and wo, fp32 factors), LORA_SILOS
+    adapters on wq, wk, wv and wo, fp32 factors), its depth cut to
+    LORA_LAYERS of its 16 layers to keep the script's time, LORA_SILOS
     ``make_lm_silos`` silos of 2048-token sequences (4 train, 2 test each,
     batch 2), ``FLClient(loss_fn=model.loss o lora_effective,
     optimizer=masked(make_optimizer_for(cfg), ".lora_"))`` under
@@ -2030,13 +2187,13 @@ def phase_lora_rounds():
     from repro_torch.models.fl_models import lora_adapter_schema
     from repro_torch.utils.tree import keystr, tree_flatten_with_path
 
-    cfg = get_config("olmo-1b").with_lora(2)
+    cfg = get_config("olmo-1b").with_overrides(n_layers=LORA_LAYERS).with_lora(2)
     silos = make_lm_silos(LORA_SILOS, cfg.vocab_size, TRAIN_S, [(4, 2)] * LORA_SILOS, seed=0)
     model, params0, clients = _lora_setup(cfg, "cuda", 0, 1, silos, make_optimizer_for)
     leaves0 = [(keystr(p), t.clone()) for p, t in tree_flatten_with_path(params0)[0]]
     n_adapter = sum(t.numel() for k, t in leaves0 if ".lora_" in k)
     n_total = sum(t.numel() for _, t in leaves0)
-    tag = "[lora] olmo-1b bf16 rank 2"
+    tag = f"[lora] olmo-1b bf16 rank 2 ({cfg.n_layers} layers)"
     say(f"{tag}: {n_total:,} parameters, {n_adapter:,} of them adapters "
         f"({sum('.lora_' in k for k, _ in leaves0)} factor leaves), {LORA_SILOS} silos")
     L = cfg.n_layers  # train: 2 batches a silo, eval: 1
@@ -2135,7 +2292,10 @@ def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
     params = model.init(torch.Generator().manual_seed(5), "cpu")
     names = [keystr(k) for k, _ in tree_flatten_with_path(params)[0]]
     seq = 2 * cfg.ssm_chunk if cfg.arch_type == "ssm" else 64
-    batch = _lm_batch(SyntheticLM(cfg.vocab_size, seq, seed=1), np.random.default_rng(1), 2)
+    rng = np.random.default_rng(1)
+    batch = _lm_batch(SyntheticLM(cfg.vocab_size, seq, seed=1), rng, 2)
+    if cfg.arch_type == "encdec":
+        batch["frames"] = _frames(rng, 2, cfg)
     runs = {}
     for device in ("cuda", "cpu"):
         p = tree_map(lambda t: t.to(device), params)
@@ -2164,16 +2324,16 @@ def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
         f"updated parameters relative L2: whole model {whole:.3e}, worst leaf {leaf_rel[worst_i]:.3e} "
         f"({names[worst_i]}) (tol 1e-4 {'per leaf' if per_leaf else 'for the whole model'}); "
         f"{bwd} launches card {cn}, cpu {pn} {'ok' if ok else 'FAIL'}")
-    check(ok and cn == cfg.n_layers and pn == 0,
+    check(ok and cn == _attention_launches(cfg) and pn == 0,
           f"reduced {arch} train step: card agrees with the CPU")
     return {"loss": (cl, pl), "worst_rel_l2": max(leaf_rel), "worst_leaf": names[worst_i],
             "whole_rel_l2": whole, "worst_grad_rel_l2": worst_grad, "bwd_launches": cn}
 
 
 def phase_train_reference_check():
-    """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m and
-    deepseek-moe-16b in fp32 on the card (kernels) and on the CPU (plain
-    versions) from the same weights: one train step each
+    """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
+    deepseek-moe-16b and whisper-small in fp32 on the card (kernels) and on
+    the CPU (plain versions) from the same weights: one train step each
     (``_train_step_card_vs_cpu``; updated parameters held leaf by leaf,
     but mamba2-130m's, which start with zero biases, as one vector), and
     one federated LoRA round of olmo-1b
@@ -2194,10 +2354,11 @@ def phase_train_reference_check():
     mamba = _train_step_card_vs_cpu("mamba2-130m", "ssd_intra_chunk_bwd", per_leaf=False)
     moe = {arch: _train_step_card_vs_cpu(arch, "flash_attention_bwd", per_leaf=True)
            for arch in ("granite-moe-1b-a400m", "deepseek-moe-16b")}
+    whisper = _train_step_card_vs_cpu("whisper-small", "flash_attention_bwd", per_leaf=True)
     cfg = get_config("olmo-1b").reduced().with_overrides(dtype="float32", param_dtype="float32")
     lcfg = cfg.with_lora(2)
     out = {"train_loss": olmo["loss"], "train_worst_rel_l2": olmo["worst_rel_l2"],
-           "ssm_train": mamba, "moe_train": moe}
+           "ssm_train": mamba, "moe_train": moe, "encdec_train": whisper}
     results = {}
     for device in ("cuda", "cpu"):
         silos = make_lm_silos(2, lcfg.vocab_size, 32, [(4, 2), (4, 2)], seed=2)
@@ -2469,13 +2630,16 @@ def phase_ssd_bwd_timing():
     return row
 
 
-def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: list) -> dict:
+def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: list,
+                     seq: int = PREFILL_S) -> dict:
     """``arch`` at full width and depth in bf16, random weights from seed 0,
     through ``make_train_step`` with ``make_optimizer_for`` (AdamW, fp32
-    state) on (batch, 2048) batches of ``SyntheticLM`` tokens: one warm-up
-    step, TRAIN_STEPS timed ones (host clock ending in a synchronize), each
-    with one ``fwd`` and one ``bwd`` launch a layer and nothing else, losses
-    finite; one more step under ``torch.profiler``.  First the gradients of
+    state) on (batch, seq) batches of ``SyntheticLM`` tokens (an
+    encoder-decoder's with (batch, 1500, d) frames drawn after them): one
+    warm-up step, TRAIN_STEPS timed ones (host clock ending in a
+    synchronize), each with one ``fwd`` and one ``bwd`` launch an attention
+    (``_attention_launches``) and nothing else, losses finite; one more step
+    under ``torch.profiler``.  First the gradients of
     two differentiations of the loss from the same weights and batch must
     be bit-equal (no atomic accumulation on the path).  Then the trainer as a user runs it, in
     its own process: ``python -m repro_torch.launch.train --arch <arch>``
@@ -2496,11 +2660,15 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
     opt = make_optimizer_for(cfg)
     state = opt.init(params)
     step = make_train_step(model, opt)
-    ds = SyntheticLM(cfg.vocab_size, PREFILL_S, seed=0)
+    ds = SyntheticLM(cfg.vocab_size, seq, seed=0)
     rng = np.random.default_rng(0)
-    batches = [_lm_batch(ds, rng, batch) for _ in range(TRAIN_STEPS + 2)]
+    batches = []
+    for _ in range(TRAIN_STEPS + 2):
+        batches.append(_lm_batch(ds, rng, batch))
+        if cfg.arch_type == "encdec":
+            batches[-1]["frames"] = _frames(rng, batch, cfg)
     tag = f"[train] {arch} bf16"
-    L = cfg.n_layers
+    L = _attention_launches(cfg)
     only = dict.fromkeys(KERNELS, 0) | {fwd: L, bwd: L}
     leaves, treedef = tree_flatten(params)
     grads = []
@@ -2510,7 +2678,7 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
         grads.append((loss.detach(), torch.autograd.grad(loss, live)))
     (l1, g1), (l2, g2) = grads
     same = [torch.equal(a, b) for a, b in zip(g1, g2)]
-    say(f"{tag}: two gradients from the same weights and batch ({batch}, {PREFILL_S}): "
+    say(f"{tag}: two gradients from the same weights and batch ({batch}, {seq}): "
         f"losses {float(l1):.6f} / {float(l2):.6f} bit-equal {torch.equal(l1, l2)}; "
         f"{sum(same)} of {len(same)} leaves' gradients bit-equal")
     check(torch.equal(l1, l2) and all(same), f"{arch}: repeated gradients bit-equal")
@@ -2532,7 +2700,7 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     q1, med, q3 = quartiles(times)
-    say(f"{tag}: {model.param_count(params):,} params, batch ({batch}, {PREFILL_S}): train step "
+    say(f"{tag}: {model.param_count(params):,} params, batch ({batch}, {seq}): train step "
         f"median {med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over "
         f"{TRAIN_STEPS} steps (each {', '.join(f'{t * 1e3:.1f}' for t in times)}); losses "
         f"{', '.join(f'{x:.4f}' for x in losses)}; launches a step {all_launches[-1]}; "
@@ -2587,6 +2755,16 @@ def phase_moe_train_step():
     defaults (50 steps of (8, 128))."""
     return _zoo_train_phase("granite-moe-1b-a400m", TRAIN_B, "flash_attention",
                             "flash_attention_bwd", [])
+
+
+def phase_encdec_train_step():
+    """whisper-small on (8, 448) token batches over (8, 1500, 768) frames:
+    36 ``flash_attention`` forward and 36 backward launches a step (12
+    encoder, 12 decoder self, 12 cross; ``_zoo_train_phase``); the
+    reference's trainer command ``--arch whisper-small`` with its defaults
+    (50 steps of (8, 128) tokens, each over (8, 1500) frames)."""
+    return _zoo_train_phase("whisper-small", WHISPER_B, "flash_attention",
+                            "flash_attention_bwd", [], seq=WHISPER_S)
 
 
 def _zoo_fedavg_phase(arch: str, fwd: str, bwd: str) -> dict:
@@ -2721,6 +2899,18 @@ def phase_moe_fedavg_rounds():
     return _zoo_fedavg_phase("granite-moe-1b-a400m", "flash_attention", "flash_attention_bwd")
 
 
+PHASE_S: dict = {}   # seconds each phase of main() took, in order
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall time printed and kept in PHASE_S."""
+    t0 = time.monotonic()
+    out = phase(*args)
+    PHASE_S[phase.__name__] = time.monotonic() - t0
+    say(f"[phase] {phase.__name__} {PHASE_S[phase.__name__]:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce  # noqa: F401 (fail early)
@@ -2729,40 +2919,42 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.monotonic()
-    smi = phase_device()
-    sass, ptxas = phase_build()
-    main_err = phase_kernel_check()
-    dq_err = phase_dequant_check()
-    flash_err = phase_flash_check()
-    bwd_err = phase_flash_bwd_check()
-    ssd_err = phase_ssd_check()
-    ssd_bwd_err = phase_ssd_bwd_check()
-    timing = phase_kernel_timing()
-    dq_timing = phase_dequant_timing()
-    zoo_timing = phase_zoo_timing()
-    ssd_bwd_timing = phase_ssd_bwd_timing()   # before any phase that traces
-    gqa_timing = phase_flash_gqa_timing()
-    bwd_timing = phase_flash_bwd_timing()
-    fold = phase_fold_breakdown()
-    compressed_split = phase_compressed_breakdown()
+    smi = timed(phase_device)
+    sass, ptxas = timed(phase_build)
+    main_err = timed(phase_kernel_check)
+    dq_err = timed(phase_dequant_check)
+    flash_err = timed(phase_flash_check)
+    bwd_err = timed(phase_flash_bwd_check)
+    ssd_err = timed(phase_ssd_check)
+    ssd_bwd_err = timed(phase_ssd_bwd_check)
+    timing = timed(phase_kernel_timing)
+    dq_timing = timed(phase_dequant_timing)
+    zoo_timing = timed(phase_zoo_timing)
+    ssd_bwd_timing = timed(phase_ssd_bwd_timing)   # before any phase that traces
+    shape_timing = timed(phase_flash_shape_timing)
+    bwd_timing = timed(phase_flash_bwd_timing)
+    fold = timed(phase_fold_breakdown)
+    compressed_split = timed(phase_compressed_breakdown)
     build_root = ROOT / "build"
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_ckpt_") as d:
-        path = phase_main_path(Path(d))
-    compressed = phase_compressed_path()
-    reference = phase_reference_check()
-    compressed_reference = phase_compressed_reference_check()
-    zoo = phase_zoo_paths()
-    moe_zoo = phase_moe_paths()
-    zoo_reference = phase_zoo_reference_check()
-    train_step = phase_train_step()
-    trainer = phase_trainer_entry()
-    lora = phase_lora_rounds()
-    ssm_train = phase_ssm_train_step()
-    ssm_fedavg = phase_ssm_fedavg_rounds()
-    moe_train = phase_moe_train_step()
-    moe_fedavg = phase_moe_fedavg_rounds()
-    train_reference = phase_train_reference_check()
+        path = timed(phase_main_path, Path(d))
+    compressed = timed(phase_compressed_path)
+    reference = timed(phase_reference_check)
+    compressed_reference = timed(phase_compressed_reference_check)
+    zoo = timed(phase_zoo_paths)
+    moe_zoo = timed(phase_moe_paths)
+    encdec_zoo = timed(phase_encdec_paths)
+    zoo_reference = timed(phase_zoo_reference_check)
+    train_step = timed(phase_train_step)
+    trainer = timed(phase_trainer_entry)
+    lora = timed(phase_lora_rounds)
+    ssm_train = timed(phase_ssm_train_step)
+    ssm_fedavg = timed(phase_ssm_fedavg_rounds)
+    moe_train = timed(phase_moe_train_step)
+    moe_fedavg = timed(phase_moe_fedavg_rounds)
+    encdec_train = timed(phase_encdec_train_step)
+    train_reference = timed(phase_train_reference_check)
 
     dq = dq_timing["int8"]
     kernels = [{
@@ -2796,7 +2988,8 @@ def main() -> int:
             ("flash_attention", "flash_attention.cu", "flash_attention.py:30",
              sum(zoo_run["prefill_launches"]["flash_attention"]
                  for zoo_run in (zoo["olmo-1b bf16"], moe_zoo["granite-moe-1b-a400m bf16"],
-                                 moe_zoo["deepseek-moe-16b bf16"])), flash_err),
+                                 moe_zoo["deepseek-moe-16b bf16"],
+                                 encdec_zoo["whisper-small bf16"])), flash_err),
             ("ssd_chunk_scan", "ssd_scan.cu", "ssd_scan.py:27",
              zoo["mamba2-130m bf16"]["prefill_launches"]["ssd_chunk_scan"], ssd_err)):
         row = zoo_timing[name]
@@ -2819,7 +3012,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/layers.py:97",
         "launches": (train_step["launches"]["flash_attention_bwd"]
-                     + moe_train["launches"]["flash_attention_bwd"]),
+                     + moe_train["launches"]["flash_attention_bwd"]
+                     + encdec_train["launches"]["flash_attention_bwd"]),
         "max_abs_err": bwd_err,
         "ms": bwd_timing["ms"],
         "plain_ms": bwd_timing["plain_ms"],
@@ -2848,11 +3042,13 @@ def main() -> int:
         "compressed_breakdown": compressed_split, "compressed_path": compressed,
         "compressed_reference": compressed_reference, "zoo_timing": zoo_timing, "zoo": zoo,
         "zoo_reference": zoo_reference, "flash_bwd_timing": bwd_timing,
-        "flash_gqa_timing": gqa_timing, "moe_zoo": moe_zoo, "moe_train": moe_train,
+        "flash_shape_timing": shape_timing, "moe_zoo": moe_zoo, "moe_train": moe_train,
         "moe_fedavg": moe_fedavg,
+        "encdec_zoo": encdec_zoo, "encdec_train": encdec_train,
         "train_step": train_step, "trainer": trainer, "lora": lora,
         "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
-        "train_reference": train_reference, "seconds": time.monotonic() - t_start,
+        "train_reference": train_reference, "phase_s": PHASE_S,
+        "seconds": time.monotonic() - t_start,
     }, indent=1))
     say(f"[done] {time.monotonic() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -6,10 +6,13 @@
 //
 //     o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,g,:] / sqrt(D)) v[b,j,g,:]
 //
-// over the keys j in range for query i (j <= i when causal, j > i - window
-// with a window), with g = h / (H / KV) the KV head that query head h
-// reads.  q, k, v are fp32 or bf16; the output is in q's dtype.  Rows with
-// no key in range give 0 (the Pallas kernel's l == 0 guard).
+// over the keys j < Sk in range for query i < Sq (j <= i when causal,
+// j > i - window with a window; queries and keys both count from 0, as the
+// Pallas kernel's masks do), with g = h / (H / KV) the KV head that query
+// head h reads.  Sk may be longer or shorter than Sq (whisper's
+// cross-attention: 448 decoder queries over 1500 encoder frames).  q, k, v
+// are fp32 or bf16; the output is in q's dtype.  Rows with no key in range
+// give 0 (the Pallas kernel's l == 0 guard).
 //
 // Layout: the reference's (B, S, heads, D) with any strides over the first
 // three axes and D contiguous, so the wrapper passes the projections as
@@ -33,10 +36,10 @@
 //     accumulator layout of m64nN is the register A fragment of the next
 //     k16 step -- and O += P V is wgmma m64nDk16 with V read through the
 //     transpose bit.  O stays in registers; the epilogue divides by l and
-//     stores rows < S.  The tensor maps are built on the host with
+//     stores rows < Sq.  The tensor maps are built on the host with
 //     cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint, so the
-//     library needs no -lcuda.  q and o map as (D, H, S, B), k and v as
-//     (D, KV, S, B): GQA is an index.  A D = 128 row is two 64-column
+//     library needs no -lcuda.  q and o map as (D, H, Sq, B), k and v as
+//     (D, KV, Sk, B): GQA is an index.  A D = 128 row is two 64-column
 //     boxes (the 128-byte swizzle's width).
 //   * fp32: flash_fwd, on the CUDA cores in fp32 (67 TFLOP/s peak), for
 //     the fp32 configs the parity tests run; it takes fp32 only.
@@ -47,11 +50,12 @@
 //     memory.
 //   * Tiles wholly outside the causal or window range are skipped (the
 //     reference's pl.when); only tiles that cross the diagonal, the
-//     window's edge or the ragged end of S are masked.  Query tiles are
+//     window's edge or the ragged end of Sk are masked.  Query tiles are
 //     issued last-first so the longest causal rows start first.
-//   * A ragged S needs no padded copy: keys and values past S are zeros
-//     (TMA fills them; flash_fwd loads them as 0) and masked out, rows past
-//     S are not written.
+//   * A ragged Sq or Sk needs no padded copy: keys and values past Sk are
+//     zeros (TMA fills them; flash_fwd loads them as 0) and masked out by
+//     kpos < Sk, query rows past Sq are zeros and not written.  The query
+//     tiles and the grid run over Sq, the key tiles over Sk.
 // What holds the bf16 kernel back now (no profiler counters on the card,
 // so inferred): the two consumers take turns with nothing in between --
 // a consumer's softmax does not overlap its own or the other's products
@@ -66,7 +70,7 @@
 // scores are formed, so D = 128 needs 98 KB and two blocks fit an SM.
 //
 // With a non-null `lse` both paths also write the row log-sum-exp of the
-// scaled scores, fp32 (B, H, S), natural log (+inf for a row with no key in
+// scaled scores, fp32 (B, H, Sq), natural log (+inf for a row with no key in
 // range), which flash_attention_bwd.cu reads; the prefill passes null.
 //
 // Interface: plain C, loaded with ctypes.  Returns cudaGetLastError() after
@@ -92,8 +96,8 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  float* lse;  // (B, H, S) row log-sum-exp for the backward, or null
-  int B, S, H, KV;
+  float* lse;  // (B, H, Sq) row log-sum-exp for the backward, or null
+  int B, Sq, Sk, H, KV;
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int causal, window;
   float scale;
@@ -125,9 +129,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
   const int b = bh / a.H;
   const int h = bh % a.H;
   const int g = h / (a.H / a.KV);
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const int q_last = min(q0 + kBQ, S) - 1;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
 
   const float* qb = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
   const float* kb = static_cast<const float*>(a.k) + b * a.ksb + g * a.ksh;
@@ -135,10 +139,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, s = q0 + r;
-    Qs[r * QS + d] = s < S ? qb[s * a.qss + d] : 0.f;
+    Qs[r * QS + d] = s < Sq ? qb[s * a.qss + d] : 0.f;
   }
 
-  int kt_end = (S + kBK - 1) / kBK;
+  int kt_end = (Sk + kBK - 1) / kBK;
   if (a.causal) kt_end = min(kt_end, q_last / kBK + 1);
   const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / kBK : 0;
 
@@ -156,7 +160,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
     __syncthreads();  // the previous tile's readers of Ks/Ps and Vs are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int c = i / D, d = i % D, s = k0 + c;
-      const bool in = s < S;
+      const bool in = s < Sk;
       Ks[c * QS + d] = in ? kb[s * a.kss + d] : 0.f;
       Vs[c * D + d] = in ? vb[s * a.vss + d] : 0.f;
     }
@@ -196,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < S && (!a.causal || kpos <= qpos) &&
+        const bool ok = kpos < Sk && (!a.causal || kpos <= qpos) &&
                         (a.window <= 0 || kpos > qpos - a.window);
         sc[i][j] = ok ? sc[i][j] * a.scale : -INFINITY;
         mt = fmaxf(mt, sc[i][j]);
@@ -256,11 +260,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + 4 * ty + i;
-    if (s >= S) continue;
+    if (s >= Sq) continue;
     if (a.lse != nullptr && tx == 0)
-      a.lse[(static_cast<int64_t>(b) * a.H + h) * S + s] = l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
+      a.lse[(static_cast<int64_t>(b) * a.H + h) * Sq + s] = l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
     const float li = l[i] == 0.f ? 1.f : l[i];  // rows with no key in range -> 0
-    float* orow = ob + ((static_cast<int64_t>(b) * S + s) * a.H + h) * D;
+    float* orow = ob + ((static_cast<int64_t>(b) * Sq + s) * a.H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
 #pragma unroll
@@ -284,7 +288,7 @@ constexpr int kBoxBytes = 128 * kBox * 2;  // a 128-row box: 16 KB
 struct WsArgs {
   void* o;
   float* lse;
-  int S, H, KV;
+  int Sq, Sk, H, KV;
   int causal, window;
   float scale_log2;  // 1/sqrt(D) * log2(e): the softmax runs in base 2
 };
@@ -459,10 +463,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int b = bh / a.H;
   const int h = bh % a.H;
   const int g = h / (a.H / a.KV);
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWsBQ;
-  const int q_last = min(q0 + kWsBQ, S) - 1;
-  int kt_end = (S + kWsBK - 1) / kWsBK;
+  const int q_last = min(q0 + kWsBQ, Sq) - 1;
+  int kt_end = (Sk + kWsBK - 1) / kWsBK;
   if (a.causal) kt_end = min(kt_end, q_last / kWsBK + 1);
   const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / kWsBK : 0;
 
@@ -534,11 +538,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       wgmma_wait_all();
       pin<kWsBK / 2>(s);
 
-      // Mask (only tiles that cross the diagonal, the window's edge or S),
+      // Mask (only tiles that cross the diagonal, the window's edge or Sk),
       // then the online softmax in base 2.  s[4j + 2*half + e] is row
       // r0 + 8*half, key k0 + 8j + 2t + e; a row lives in the 4 threads of
       // a quad.
-      const bool need_mask = k0 + kWsBK > S || (a.causal && k0 + kWsBK - 1 > row_lo) ||
+      const bool need_mask = k0 + kWsBK > Sk || (a.causal && k0 + kWsBK - 1 > row_lo) ||
                              (a.window > 0 && k0 <= row_hi - a.window);
       if (need_mask) {
 #pragma unroll
@@ -549,7 +553,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
             for (int e = 0; e < 2; ++e) {
               const int kpos = k0 + 8 * j + 2 * t + e;
               const int qpos = r0 + 8 * half;
-              const bool ok = kpos < S && (!a.causal || kpos <= qpos) &&
+              const bool ok = kpos < Sk && (!a.causal || kpos <= qpos) &&
                               (a.window <= 0 || kpos > qpos - a.window);
               if (!ok) s[4 * j + 2 * half + e] = -INFINITY;
             }
@@ -620,19 +624,19 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       mbar_arrive(&empty[st]);
     }
 
-    // Epilogue: o / l in bf16, rows past S not stored; l == 0 gives 0.
+    // Epilogue: o / l in bf16, rows past Sq not stored; l == 0 gives 0.
     // The row log-sum-exp, if asked for, in natural log: m and l are kept
     // in base 2 with the scale folded in.
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = r0 + 8 * half;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       if (a.lse != nullptr && t == 0)
-        a.lse[(static_cast<int64_t>(b) * a.H + h) * S + row] =
+        a.lse[(static_cast<int64_t>(b) * a.H + h) * Sq + row] =
             l[half] == 0.f ? INFINITY : (m[half] + log2f(l[half])) * 0.6931471805599453f;
       const float inv = l[half] == 0.f ? 0.f : 1.f / l[half];
-      __nv_bfloat16* orow = ob + ((static_cast<int64_t>(b) * S + row) * a.H + h) * D;
+      __nv_bfloat16* orow = ob + ((static_cast<int64_t>(b) * Sq + row) * a.H + h) * D;
 #pragma unroll
       for (int j = 0; j < kOT; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
@@ -694,17 +698,17 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, a.q, a.B, a.S, a.H, D, a.qsb, a.qss, a.qsh) ||
-      !make_map(enc, &tk, a.k, a.B, a.S, a.KV, D, a.ksb, a.kss, a.ksh) ||
-      !make_map(enc, &tv, a.v, a.B, a.S, a.KV, D, a.vsb, a.vss, a.vsh)) {
+  if (!make_map(enc, &tq, a.q, a.B, a.Sq, a.H, D, a.qsb, a.qss, a.qsh) ||
+      !make_map(enc, &tk, a.k, a.B, a.Sk, a.KV, D, a.ksb, a.kss, a.ksh) ||
+      !make_map(enc, &tv, a.v, a.B, a.Sk, a.KV, D, a.vsb, a.vss, a.vsh)) {
     return cudaErrorInvalidValue;
   }
-  const WsArgs w{a.o, a.lse, a.S, a.H, a.KV, a.causal, a.window, a.scale * 1.4426950408889634f};
+  const WsArgs w{a.o, a.lse, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.scale * 1.4426950408889634f};
   constexpr int smem = ws_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.S + kWsBQ - 1) / kWsBQ);
+  const dim3 grid(a.B * a.H, (a.Sq + kWsBQ - 1) / kWsBQ);
   flash_fwd_wgmma<D><<<grid, kWsThreads, smem, stream>>>(tq, tk, tv, w);
   return cudaGetLastError();
 }
@@ -712,7 +716,7 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
 template <int D>
 cudaError_t launch(const Args& a, bool bf16, cudaStream_t stream) {
   if (bf16) return launch_bf16<D>(a, stream);
-  const dim3 grid(a.B * a.H, (a.S + kBQ - 1) / kBQ);
+  const dim3 grid(a.B * a.H, (a.Sq + kBQ - 1) / kBQ);
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -724,17 +728,17 @@ cudaError_t launch(const Args& a, bool bf16, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      float* lse, int B, int S, int H, int KV, int D,
+                                      float* lse, int B, int Sq, int Sk, int H, int KV, int D,
                                       int64_t qsb, int64_t qss, int64_t qsh,
                                       int64_t ksb, int64_t kss, int64_t ksh,
                                       int64_t vsb, int64_t vss, int64_t vsh,
                                       int causal, int window, float scale, int dtype,
                                       void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
-      static_cast<int64_t>(B) * H > 0x7fffffff || (S + kBQ - 1) / kBQ > 65535) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
+      static_cast<int64_t>(B) * H > 0x7fffffff || (Sq + kBQ - 1) / kBQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, lse, B, S, H, KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+  const Args a{q, k, v, o, lse, B, Sq, Sk, H, KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
                causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128)) {

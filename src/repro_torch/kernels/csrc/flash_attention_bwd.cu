@@ -8,7 +8,7 @@
 // full_attention (repro/models/layers.py) with autodiff.  The port's
 // forward on a card is the kernel, so its gradient is this kernel.  Given
 // q, k, v, the forward's output o, its row log-sum-exp lse (natural log of
-// the scaled scores, fp32 (B, H, S), from flash_attention.cu) and dO:
+// the scaled scores, fp32 (B, H, Sq), from flash_attention.cu) and dO:
 //
 //     P  = exp(q k^T * scale - lse)          (recomputed, never stored)
 //     dV = sum over the G query heads of P^T dO
@@ -16,8 +16,12 @@
 //     dQ = dS k * scale,  dK = sum over the G query heads of dS^T q * scale
 //
 // over the keys in range for each query (j <= i when causal, j > i - window
-// with a window, j < S).  dq is (B, S, H, D), dk and dv (B, S, KV, D), all
-// contiguous and in q's dtype.  Queries and keys share one length S.
+// with a window, i < Sq, j < Sk; both count from 0).  dq is (B, Sq, H, D),
+// dk and dv (B, Sk, KV, D), all contiguous and in q's dtype.  Sk may be
+// longer or shorter than Sq (whisper's cross-attention, 448 queries over
+// 1500 keys): the dQ kernel's grid and query tiles run over Sq, its key
+// tiles over Sk; the dK / dV kernel's grid and key tiles over Sk, its query
+// tiles over Sq.
 //
 // What bounds it: operations.  At olmo-1b's shape (B = 4, S = 2048, H = KV =
 // 16, D = 128, bf16, causal) the five products it needs (S, dP, dV, dK, dQ)
@@ -36,7 +40,7 @@
 //     tile the mask lets reach its keys, recomputing S^T and dP^T for each.
 // Tiles wholly outside the causal or window range are skipped (per block,
 // and per consumer warpgroup); only tiles that cross the diagonal, the
-// window's edge or the ragged end of S are masked.
+// window's edge or the ragged end of Sq or Sk are masked.
 //
 // bf16 (the models' dtype, the main path): both kernels are warp-
 // specialised wgmma kernels built from the forward's machinery
@@ -62,10 +66,13 @@
 //     work, then dK += dS^T Q (Q and dO through the transpose bit).
 //   The tensor maps are built on the host with cuTensorMapEncodeTiled,
 //   found through cudaGetDriverEntryPoint (no -lcuda).  q and dO map as
-//   (D, H, S, B), k and v as (D, KV, S, B): GQA is an index; a D = 128 row
+//   (D, H, Sq, B), k and v as (D, KV, Sk, B): GQA is an index; a D = 128 row
 //   is two 64-column boxes (the swizzle's width).  lse and Delta map as
-//   rows of a (2 * B * H, round_up(S, 4)) fp32 scratch.  TMA fills rows
-//   past S with zeros; those rows and columns are masked.  A row with no
+//   rows of a (2 * B * H, round_up(Sq, 4)) fp32 scratch.  TMA fills rows
+//   past Sq (q, dO, lse, Delta) or Sk (k, v) with zeros; those rows and
+//   columns are masked: a query past Sq has zero q and dO and a zero lse,
+//   so its P would be exp2(0) -- the dK / dV kernel's mask (qpos < Sq) sets
+//   it to 0 before it reaches dK or dV.  A row with no
 //   key in range has lse = +inf, so P = 0.  The loop-invariant operand
 //   addresses are laundered each trip (`fresh`), or the compiler hoists
 //   their descriptors and spills.
@@ -86,7 +93,7 @@
 // not take (for bf16 also a base or a stride of q, k, v, o or dO that is
 // not a multiple of 16 bytes: TMA and the 16-byte loads of o and dO cannot
 // address it).  Launches on the given stream and does not synchronize.
-// `delta` is the caller's fp32 scratch of 2 * B * H * round_up(S, 4) floats.
+// `delta` is the caller's fp32 scratch of 2 * B * H * round_up(Sq, 4) floats.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -105,19 +112,19 @@ struct BwdArgs {
   const void* o;
   const void* dout;
   const float* lse;
-  float* delta;  // fp32: Delta (B, H, S); bf16: Delta, then lse * log2(e), rows of
-                 // round_up(S, 4) floats
+  float* delta;  // fp32: Delta (B, H, Sq); bf16: Delta, then lse * log2(e), rows of
+                 // round_up(Sq, 4) floats
   void* dq;
   void* dk;
   void* dv;
-  int B, S, H, KV;
+  int B, Sq, Sk, H, KV;
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh, dsb, dss, dsh;
   int causal, window;
   float scale;
 };
 
 __device__ __forceinline__ bool allowed(int qpos, int kpos, const BwdArgs& a) {
-  return qpos < a.S && kpos < a.S && (!a.causal || kpos <= qpos) &&
+  return qpos < a.Sq && kpos < a.Sk && (!a.causal || kpos <= qpos) &&
          (a.window <= 0 || kpos > qpos - a.window);
 }
 
@@ -125,7 +132,7 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, const BwdArgs& a) {
 // reach keys [k0, k0 + tile).
 __device__ __forceinline__ void query_tiles(const BwdArgs& a, int k0, int tile, int* first,
                                             int* end) {
-  const int n = (a.S + tile - 1) / tile;
+  const int n = (a.Sq + tile - 1) / tile;
   *first = a.causal ? k0 / tile : 0;
   *end = n;
   if (a.window > 0) *end = min(n, (k0 + tile - 1 + a.window - 1) / tile + 1);
@@ -134,14 +141,14 @@ __device__ __forceinline__ void query_tiles(const BwdArgs& a, int k0, int tile, 
 // The first and one-past-last key tiles that queries [q0, q0 + tile) reach.
 __device__ __forceinline__ void key_tiles(const BwdArgs& a, int q0, int tile, int* first,
                                           int* end) {
-  const int q_last = min(q0 + tile, a.S) - 1;
-  *end = (a.S + tile - 1) / tile;
+  const int q_last = min(q0 + tile, a.Sq) - 1;
+  *end = (a.Sk + tile - 1) / tile;
   if (a.causal) *end = min(*end, q_last / tile + 1);
   *first = a.window > 0 ? max(0, q0 - a.window + 1) / tile : 0;
 }
 
 // ---------------------------------------------------------------------------
-// fp32: Delta = rowsum(dO * o), (B, H, S): one warp a row.  (The bf16 dQ
+// fp32: Delta = rowsum(dO * o), (B, H, Sq): one warp a row.  (The bf16 dQ
 // kernel forms its rows' Delta itself.)
 // ---------------------------------------------------------------------------
 
@@ -149,11 +156,11 @@ template <int D>
 __global__ void __launch_bounds__(256) bwd_delta(BwdArgs a) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= static_cast<int64_t>(a.B) * a.S * a.H) return;
+  if (row >= static_cast<int64_t>(a.B) * a.Sq * a.H) return;
   const int h = static_cast<int>(row % a.H);
   const int64_t bs = row / a.H;
-  const int s = static_cast<int>(bs % a.S);
-  const int b = static_cast<int>(bs / a.S);
+  const int s = static_cast<int>(bs % a.Sq);
+  const int b = static_cast<int>(bs / a.Sq);
   const float* orow = static_cast<const float*>(a.o) + b * a.osb + s * a.oss + h * a.osh;
   const float* drow = static_cast<const float*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
   float acc = 0.f;
@@ -161,7 +168,7 @@ __global__ void __launch_bounds__(256) bwd_delta(BwdArgs a) {
   for (int d = lane; d < D; d += 32) acc = fmaf(orow[d], drow[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) a.delta[(static_cast<int64_t>(b) * a.H + h) * a.S + s] = acc;
+  if (lane == 0) a.delta[(static_cast<int64_t>(b) * a.H + h) * a.Sq + s] = acc;
 }
 
 // 2^x in one MUFU instruction (ex2.approx; results below 2^-126 flush to
@@ -192,13 +199,13 @@ constexpr int kBox = 64;         // bf16 columns of one 128-byte swizzled box
 struct WsArgs {
   const void* o;
   const void* dout;
-  const float* lse;    // (B, H, S), natural log
+  const float* lse;    // (B, H, Sq), natural log
   float* scratch;      // (B, H, ldl) Delta, then (B, H, ldl) lse in base 2
   void* dq;
   void* dk;
   void* dv;
   int64_t osb, oss, osh, dsb, dss, dsh;
-  int B, S, H, KV, ldl;
+  int B, Sq, Sk, H, KV, ldl;
   int causal, window;
   float scale;
   float scale_log2;    // scale * log2(e): the exponentials run in base 2
@@ -412,7 +419,8 @@ __device__ __forceinline__ void to_a(uint32_t* a, const float* acc) {
 }
 
 // The accumulator fragment (rows r0 and r0 + 8, D columns) times `mul`, in
-// bf16, into row-major rows of `ld` elements; rows >= S are not stored.
+// bf16, into row-major rows of `ld` elements; rows >= S (the rows' length,
+// Sq or Sk) are not stored.
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t ld, const float* acc,
                                            int r0, int S, float mul) {
@@ -458,11 +466,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int b = blockIdx.x / a.KV;
   const int g = blockIdx.x % a.KV;
   const int G = a.H / a.KV;
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk;
   const int k0 = blockIdx.y * kBN;
   // The 64-row query tiles whose queries reach keys [k0, k0 + kBN).
   const int qt_first = a.causal ? k0 / kBM : 0;
-  int qt_end = (S + kBM - 1) / kBM;
+  int qt_end = (Sq + kBM - 1) / kBM;
   if (a.window > 0) qt_end = min(qt_end, (k0 + kBN - 2 + a.window) / kBM + 1);
 
   if (threadIdx.x == 0) {
@@ -495,7 +503,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
             tma_load_4d(Qs + st * kQTile + x * kQBox, &tq, &full[st], x * kBox, h, qt * kBM, b);
             tma_load_4d(Os + st * kQTile + x * kQBox, &tdo, &full[st], x * kBox, h, qt * kBM, b);
           }
-          const int row = b * a.H + h;  // of the (2 B H, S) lse / Delta map
+          const int row = b * a.H + h;  // of the (2 B H, Sq) lse / Delta map
           tma_load_2d(Ls + st * 2 * kBM, &tld, &full[st], qt * kBM, a.B * a.H + row);
           tma_load_2d(Ls + st * 2 * kBM + kBM, &tld, &full[st], qt * kBM, row);
         }
@@ -512,13 +520,15 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const int r0 = key_lo + 16 * warp + (lane >> 2);   // this thread's keys: r0 and r0 + 8
     const uint32_t k_base = smem_addr(Ks) + c * 64 * 128;
     const uint32_t v_base = smem_addr(Vs) + c * 64 * 128;
-    // The queries each of this thread's keys may see: [q_min, q_max].
+    // The queries each of this thread's keys may see: [q_min, q_max], none
+    // past Sq (their rows are TMA's zeros).
     int q_min[2], q_max[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int key = r0 + 8 * half;
       q_min[half] = a.causal ? key : 0;
-      q_max[half] = key >= S ? -1 : a.window > 0 ? min(S - 1, key + min(a.window, S) - 1) : S - 1;
+      q_max[half] =
+          key >= Sk ? -1 : a.window > 0 ? min(Sq - 1, key + min(a.window, Sq) - 1) : Sq - 1;
     }
 
     float dk[D / 2], dv[D / 2];
@@ -532,7 +542,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         const int st = i % kKvStages;
         const int q0 = qt * kBM;
         mbar_wait(&full[st], (i / kKvStages) & 1);
-        if (key_lo >= S || (a.causal && q0 + kBM - 1 < key_lo) ||
+        if (key_lo >= Sk || (a.causal && q0 + kBM - 1 < key_lo) ||
             (a.window > 0 && q0 - a.window >= key_lo + 63)) {
           mbar_arrive(&empty[st]);  // no pair of these keys and queries is in range
           continue;
@@ -557,10 +567,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         wgmma_commit();
 
         // P^T = exp2(S^T * scale_log2 - lse2[query]), masked where the tile
-        // crosses the diagonal, the window's edge or S.  s[4j + 2*half + e]
+        // crosses the diagonal, the window's edge, Sq or Sk.  s[4j + 2*half + e]
         // is key r0 + 8*half, query q0 + 8j + 2t + e.
         const float* ls = Ls + st * 2 * kBM;
-        const bool need_mask = q0 + kBM > S || key_lo + 64 > S ||
+        const bool need_mask = q0 + kBM > Sq || key_lo + 64 > Sk ||
                                (a.causal && key_lo + 63 > q0) ||
                                (a.window > 0 && key_lo <= q0 + kBM - 1 - a.window);
         wgmma_wait<1>();
@@ -621,11 +631,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
 
-    // Epilogue: dK * scale and dV in bf16, keys past S not stored.
+    // Epilogue: dK * scale and dV in bf16, keys past Sk not stored.
     const int64_t ld = static_cast<int64_t>(a.KV) * D;
-    const int64_t off = (static_cast<int64_t>(b) * S * a.KV + g) * D;
-    store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + off, ld, dk, r0, S, a.scale);
-    store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + off, ld, dv, r0, S, 1.f);
+    const int64_t off = (static_cast<int64_t>(b) * Sk * a.KV + g) * D;
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + off, ld, dk, r0, Sk, a.scale);
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + off, ld, dv, r0, Sk, 1.f);
   }
 }
 
@@ -654,10 +664,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int b = blockIdx.x / a.H;
   const int h = blockIdx.x % a.H;
   const int g = h / (a.H / a.KV);
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBN;  // the longest causal rows first
-  const int q_last = min(q0 + kBN, S) - 1;
-  int kt_end = (S + kBN - 1) / kBN;
+  const int q_last = min(q0 + kBN, Sq) - 1;
+  int kt_end = (Sk + kBN - 1) / kBN;
   if (a.causal) kt_end = min(kt_end, q_last / kBN + 1);
   const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / kBN : 0;
 
@@ -714,9 +724,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     for (int half = 0; half < 2; ++half) {
       const int row = r0 + 8 * half;
       k_min[half] = a.window > 0 ? row - a.window + 1 : 0;
-      k_max[half] = a.causal ? min(row, S - 1) : S - 1;
+      k_max[half] = a.causal ? min(row, Sk - 1) : Sk - 1;
       float acc = 0.f;
-      if (row < S) {
+      if (row < Sq) {
         const uint4* op = reinterpret_cast<const uint4*>(ob + row * a.oss + t * (D / 4));
         const uint4* dp = reinterpret_cast<const uint4*>(db + row * a.dss + t * (D / 4));
 #pragma unroll
@@ -734,8 +744,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
       dl[half] = acc;
-      lse2[half] = row < S ? a.lse[bh * S + row] * kLog2e : 0.f;
-      if (t == 0 && row < S) {
+      lse2[half] = row < Sq ? a.lse[bh * Sq + row] * kLog2e : 0.f;
+      if (t == 0 && row < Sq) {
         a.scratch[bh * a.ldl + row] = acc;
         a.scratch[(static_cast<int64_t>(a.B) * a.H + bh) * a.ldl + row] = lse2[half];
       }
@@ -749,7 +759,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       const int st = i % kQStages;
       const int k0 = kt * kBN;
       mbar_wait(&full[st], (i / kQStages) & 1);
-      if (row_lo >= S || (a.causal && k0 > row_lo + 63) ||
+      if (row_lo >= Sq || (a.causal && k0 > row_lo + 63) ||
           (a.window > 0 && k0 + kBN - 1 <= row_lo - a.window)) {
         mbar_arrive(&empty[st]);
         continue;
@@ -775,9 +785,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       wgmma_commit();
 
       // P = exp2(S * scale_log2 - lse2[row]) while dP runs; s[4j + 2*half + e]
-      // is row r0 + 8*half, key k0 + 8j + 2t + e.  Rows past S are not
-      // stored, so only keys need the mask's ragged edge.
-      const bool need_mask = k0 + kBN > S || (a.causal && k0 + kBN - 1 > row_lo) ||
+      // is row r0 + 8*half, key k0 + 8j + 2t + e.  Rows past Sq are not
+      // stored, so only keys need the mask's ragged edge (Sk).
+      const bool need_mask = k0 + kBN > Sk || (a.causal && k0 + kBN - 1 > row_lo) ||
                              (a.window > 0 && k0 <= row_lo + 63 - a.window);
       wgmma_wait<1>();
       pin<kBN / 2>(s);
@@ -821,10 +831,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       mbar_arrive(&empty[st]);
     }
 
-    // Epilogue: dQ * scale in bf16, rows past S not stored.
+    // Epilogue: dQ * scale in bf16, rows past Sq not stored.
     const int64_t ld = static_cast<int64_t>(a.H) * D;
-    store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + (static_cast<int64_t>(b) * S * a.H + h) * D,
-                  ld, dq, r0, S, a.scale);
+    store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + (static_cast<int64_t>(b) * Sq * a.H + h) * D,
+                  ld, dq, r0, Sq, a.scale);
   }
 }
 
@@ -884,8 +894,8 @@ __global__ void __launch_bounds__(kFThreads) bwd_dkdv_f32(BwdArgs a) {
   const int k0 = blockIdx.y * kFT;
   const int key = threadIdx.x / 8, c8 = threadIdx.x % 8;
 
-  load_tile_f32<D>(Ks, static_cast<const float*>(a.k) + b * a.ksb + g * a.ksh, a.kss, k0, a.S);
-  load_tile_f32<D>(Vs, static_cast<const float*>(a.v) + b * a.vsb + g * a.vsh, a.vss, k0, a.S);
+  load_tile_f32<D>(Ks, static_cast<const float*>(a.k) + b * a.ksb + g * a.ksh, a.kss, k0, a.Sk);
+  load_tile_f32<D>(Vs, static_cast<const float*>(a.v) + b * a.vsb + g * a.vsh, a.vss, k0, a.Sk);
   float dk[NJ], dv[NJ];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) dk[j] = dv[j] = 0.f;
@@ -894,16 +904,16 @@ __global__ void __launch_bounds__(kFThreads) bwd_dkdv_f32(BwdArgs a) {
   query_tiles(a, k0, kFT, &qt_first, &qt_end);
   for (int hh = 0; hh < G; ++hh) {
     const int h = g * G + hh;
-    const float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.S;
-    const float* drow = a.delta + (static_cast<int64_t>(b) * a.H + h) * a.S;
+    const float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.Sq;
+    const float* drow = a.delta + (static_cast<int64_t>(b) * a.H + h) * a.Sq;
     for (int qt = qt_first; qt < qt_end; ++qt) {
       const int q0 = qt * kFT;
       __syncthreads();
-      load_tile_f32<D>(Qs, static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh, a.qss, q0, a.S);
+      load_tile_f32<D>(Qs, static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh, a.qss, q0, a.Sq);
       load_tile_f32<D>(Os, static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh, a.dss, q0,
-                       a.S);
+                       a.Sq);
       for (int i = threadIdx.x; i < kFT; i += blockDim.x) {
-        const bool in = q0 + i < a.S;
+        const bool in = q0 + i < a.Sq;
         lse_s[i] = in ? lrow[q0 + i] : 0.f;
         dl_s[i] = in ? drow[q0 + i] : 0.f;
       }
@@ -929,8 +939,8 @@ __global__ void __launch_bounds__(kFThreads) bwd_dkdv_f32(BwdArgs a) {
       }
     }
   }
-  if (k0 + key < a.S) {
-    const int64_t off = ((static_cast<int64_t>(b) * a.S + k0 + key) * a.KV + g) * D + c8;
+  if (k0 + key < a.Sk) {
+    const int64_t off = ((static_cast<int64_t>(b) * a.Sk + k0 + key) * a.KV + g) * D + c8;
     float* dkb = static_cast<float*>(a.dk);
     float* dvb = static_cast<float*>(a.dv);
 #pragma unroll
@@ -959,11 +969,11 @@ __global__ void __launch_bounds__(kFThreads) bwd_dq_f32(BwdArgs a) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kFT;
   const int row = threadIdx.x / 8, c8 = threadIdx.x % 8;
 
-  load_tile_f32<D>(Qs, static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh, a.qss, q0, a.S);
-  load_tile_f32<D>(Os, static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh, a.dss, q0, a.S);
+  load_tile_f32<D>(Qs, static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh, a.qss, q0, a.Sq);
+  load_tile_f32<D>(Os, static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh, a.dss, q0, a.Sq);
   for (int i = threadIdx.x; i < kFT; i += blockDim.x) {
-    const int64_t idx = (static_cast<int64_t>(b) * a.H + h) * a.S + q0 + i;
-    const bool in = q0 + i < a.S;
+    const int64_t idx = (static_cast<int64_t>(b) * a.H + h) * a.Sq + q0 + i;
+    const bool in = q0 + i < a.Sq;
     lse_s[i] = in ? a.lse[idx] : 0.f;
     dl_s[i] = in ? a.delta[idx] : 0.f;
   }
@@ -976,8 +986,8 @@ __global__ void __launch_bounds__(kFThreads) bwd_dq_f32(BwdArgs a) {
   for (int kt = kt_first; kt < kt_end; ++kt) {
     const int k0 = kt * kFT;
     __syncthreads();
-    load_tile_f32<D>(Ks, static_cast<const float*>(a.k) + b * a.ksb + g * a.ksh, a.kss, k0, a.S);
-    load_tile_f32<D>(Vs, static_cast<const float*>(a.v) + b * a.vsb + g * a.vsh, a.vss, k0, a.S);
+    load_tile_f32<D>(Ks, static_cast<const float*>(a.k) + b * a.ksb + g * a.ksh, a.kss, k0, a.Sk);
+    load_tile_f32<D>(Vs, static_cast<const float*>(a.v) + b * a.vsb + g * a.vsh, a.vss, k0, a.Sk);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -995,9 +1005,9 @@ __global__ void __launch_bounds__(kFThreads) bwd_dq_f32(BwdArgs a) {
       for (int j = 0; j < NJ; ++j) dq[j] = fmaf(ds, Ks[kl * DS + c8 + 8 * j], dq[j]);
     }
   }
-  if (q0 + row < a.S) {
+  if (q0 + row < a.Sq) {
     float* dqb = static_cast<float*>(a.dq);
-    const int64_t off = ((static_cast<int64_t>(b) * a.S + q0 + row) * a.H + h) * D + c8;
+    const int64_t off = ((static_cast<int64_t>(b) * a.Sq + q0 + row) * a.H + h) * D + c8;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dqb[off + 8 * j] = dq[j] * a.scale;
   }
@@ -1054,7 +1064,7 @@ bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B, int S
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The (2 B H, S) fp32 rows of Delta and lse (row stride ldl) in boxes of
+// The (2 B H, Sq) fp32 rows of Delta and lse (row stride ldl) in boxes of
 // kBM columns.
 bool make_rows_map(EncodeTiledFn enc, CUtensorMap* map, const float* ptr, int rows, int S,
                    int ldl) {
@@ -1086,16 +1096,15 @@ cudaError_t launch_bf16(const BwdArgs& a, cudaStream_t st) {
   }
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  const int ldl = (a.S + 3) / 4 * 4;  // rows of Delta and lse on 16 bytes, as TMA reads them
-  const WsArgs w{a.o,   a.dout, a.lse, a.delta,   a.dq,    a.dk,     a.dv,    a.osb, a.oss,
-                 a.osh, a.dsb,  a.dss, a.dsh,     a.B,     a.S,      a.H,     a.KV,  ldl,
-                 a.causal, a.window, a.scale, a.scale * kLog2e};
-  const dim3 grid(1, (a.S + kBN - 1) / kBN);
+  const int ldl = (a.Sq + 3) / 4 * 4;  // rows of Delta and lse on 16 bytes, as TMA reads them
+  const WsArgs w{a.o,   a.dout, a.lse, a.delta, a.dq,  a.dk,  a.dv,     a.osb,    a.oss,
+                 a.osh, a.dsb,  a.dss, a.dsh,   a.B,   a.Sq,  a.Sk,     a.H,      a.KV,
+                 ldl,   a.causal, a.window, a.scale, a.scale * kLog2e};
   CUtensorMap tq, tdo, tk, tv, tld;
-  if (!make_map(enc, &tq, a.q, a.B, a.S, a.H, D, a.qsb, a.qss, a.qsh, kBN) ||
-      !make_map(enc, &tdo, a.dout, a.B, a.S, a.H, D, a.dsb, a.dss, a.dsh, kBN) ||
-      !make_map(enc, &tk, a.k, a.B, a.S, a.KV, D, a.ksb, a.kss, a.ksh, kBN) ||
-      !make_map(enc, &tv, a.v, a.B, a.S, a.KV, D, a.vsb, a.vss, a.vsh, kBN)) {
+  if (!make_map(enc, &tq, a.q, a.B, a.Sq, a.H, D, a.qsb, a.qss, a.qsh, kBN) ||
+      !make_map(enc, &tdo, a.dout, a.B, a.Sq, a.H, D, a.dsb, a.dss, a.dsh, kBN) ||
+      !make_map(enc, &tk, a.k, a.B, a.Sk, a.KV, D, a.ksb, a.kss, a.ksh, kBN) ||
+      !make_map(enc, &tv, a.v, a.B, a.Sk, a.KV, D, a.vsb, a.vss, a.vsh, kBN)) {
     return cudaErrorInvalidValue;
   }
   constexpr int smem_q = dq_smem_bytes<D>();
@@ -1106,29 +1115,30 @@ cudaError_t launch_bf16(const BwdArgs& a, cudaStream_t st) {
     err = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_kv);
   if (err != cudaSuccess) return err;
-  bwd_dq_wgmma<D><<<dim3(a.B * a.H, grid.y), kWsThreads, smem_q, st>>>(tq, tdo, tk, tv, w);
+  bwd_dq_wgmma<D><<<dim3(a.B * a.H, (a.Sq + kBN - 1) / kBN), kWsThreads, smem_q, st>>>(
+      tq, tdo, tk, tv, w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // The dK / dV kernel streams 64-row tiles of q and dO.
-  if (!make_map(enc, &tq, a.q, a.B, a.S, a.H, D, a.qsb, a.qss, a.qsh, kBM) ||
-      !make_map(enc, &tdo, a.dout, a.B, a.S, a.H, D, a.dsb, a.dss, a.dsh, kBM) ||
-      !make_rows_map(enc, &tld, a.delta, 2 * a.B * a.H, a.S, ldl)) {
+  if (!make_map(enc, &tq, a.q, a.B, a.Sq, a.H, D, a.qsb, a.qss, a.qsh, kBM) ||
+      !make_map(enc, &tdo, a.dout, a.B, a.Sq, a.H, D, a.dsb, a.dss, a.dsh, kBM) ||
+      !make_rows_map(enc, &tld, a.delta, 2 * a.B * a.H, a.Sq, ldl)) {
     return cudaErrorInvalidValue;
   }
-  bwd_dkdv_wgmma<D><<<dim3(a.B * a.KV, grid.y), kWsThreads, smem_kv, st>>>(tq, tdo, tk, tv, tld,
-                                                                            w);
+  bwd_dkdv_wgmma<D><<<dim3(a.B * a.KV, (a.Sk + kBN - 1) / kBN), kWsThreads, smem_kv, st>>>(
+      tq, tdo, tk, tv, tld, w);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const BwdArgs& a, cudaStream_t st) {
-  const int64_t rows = static_cast<int64_t>(a.B) * a.S * a.H;
+  const int64_t rows = static_cast<int64_t>(a.B) * a.Sq * a.H;
   cudaError_t err = run(bwd_delta<D>, dim3(static_cast<unsigned>((rows + 7) / 8)), 256, 0, st, a);
   if (err != cudaSuccess) return err;
-  err = run(bwd_dkdv_f32<D>, dim3(a.B * a.KV, (a.S + kFT - 1) / kFT), kFThreads, f32_smem<D>(),
+  err = run(bwd_dkdv_f32<D>, dim3(a.B * a.KV, (a.Sk + kFT - 1) / kFT), kFThreads, f32_smem<D>(),
             st, a);
   if (err != cudaSuccess) return err;
-  return run(bwd_dq_f32<D>, dim3(a.B * a.H, (a.S + kFT - 1) / kFT), kFThreads, f32_smem<D>(), st,
+  return run(bwd_dq_f32<D>, dim3(a.B * a.H, (a.Sq + kFT - 1) / kFT), kFThreads, f32_smem<D>(), st,
              a);
 }
 
@@ -1137,19 +1147,20 @@ cudaError_t launch_f32(const BwdArgs& a, cudaStream_t st) {
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* scratch, void* dq, void* dk, void* dv,
-    int B, int S, int H, int KV, int D,
+    int B, int Sq, int Sk, int H, int KV, int D,
     int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss, int64_t osh,
     int64_t dsb, int64_t dss, int64_t dsh,
     int causal, int window, float scale, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
-      static_cast<int64_t>(B) * H > 0x7fffffff || (S + kFT - 1) / kFT > 65535 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
+      static_cast<int64_t>(B) * H > 0x7fffffff || (Sq + kFT - 1) / kFT > 65535 ||
+      (Sk + kFT - 1) / kFT > 65535 ||
       (dtype != 0 && dtype != 1) || (D != 64 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BwdArgs a{q,   k,   v,   o,   dout, lse, scratch, dq,  dk,  dv,  B,      S,     H,  KV,
-                  qsb, qss, qsh, ksb, kss,  ksh, vsb,     vss, vsh, osb, oss,    osh,   dsb, dss,
-                  dsh, causal, window, scale};
+  const BwdArgs a{q,   k,   v,   o,   dout, lse, scratch, dq,  dk,  dv,  B,   Sq,  Sk,  H,
+                  KV,  qsb, qss, qsh, ksb,  kss, ksh,     vsb, vss, vsh, osb, oss, osh, dsb,
+                  dss, dsh, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return static_cast<int>(D == 64 ? launch_bf16<64>(a, st) : launch_bf16<128>(a, st));

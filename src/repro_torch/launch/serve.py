@@ -45,13 +45,17 @@ def _sync(device: torch.device) -> None:
 
 def generate(model: ModelFamily, params, prompt: torch.Tensor, decode_tokens: int,
              temperature: float = 0.0, keep_prompt_logits: bool = False,
-             gen: Optional[torch.Generator] = None) -> ServeResult:
+             gen: Optional[torch.Generator] = None, cache=None) -> ServeResult:
     """Token-by-token prefill of ``prompt`` (B, P) through ``serve_step``,
     then ``decode_tokens`` tokens, greedy unless ``temperature > 0``.
-    Each timed span ends in a device synchronize."""
+    Each timed span ends in a device synchronize.  ``cache`` is the cache
+    to start from, by default ``init_cache(B, P + decode_tokens)`` (for an
+    encoder-decoder its cross K/V zeroed, as the reference's driver
+    decodes); a caller may hand one whose cross K/V an encoding filled."""
     device = prompt.device
     B, P = prompt.shape
-    cache = model.init_cache(B, P + decode_tokens, device)
+    if cache is None:
+        cache = model.init_cache(B, P + decode_tokens, device)
     serve_step = make_serve_step(model)
     logits, per_pos = None, []
     _sync(device)

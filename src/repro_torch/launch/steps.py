@@ -9,10 +9,9 @@
 Training differentiates ``ModelFamily.loss`` with autograd.  On a card
 the attention's gradient is the hand-written backward kernel in
 ``kernels/flash_attention.py`` and the SSD scan's the one in
-``kernels/ssd_scan.py``, so the ``dense``, ``vlm`` and ``ssm`` families
-all train there.  Prefill and serving run without autograd
-(``torch.no_grad``), and the flash forward kernel then stores no
-log-sum-exp.
+``kernels/ssd_scan.py``, so every ported family trains there.  Prefill
+and serving run without autograd (``torch.no_grad``), and the flash
+forward kernel then stores no log-sum-exp.
 """
 from __future__ import annotations
 

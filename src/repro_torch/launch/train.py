@@ -9,8 +9,10 @@ per-arch smoke variant in fp32, the size for the CPU).  Weights are
 random, drawn from a generator seeded 0 on that device (the reference
 seeds ``jax.random.PRNGKey(0)``; the two give different weights).  The
 batches are the reference's: ``SyntheticLM`` with ``seed=0`` sampled by
-``numpy.random.default_rng(0)``.  Exits 0 only if the last step's loss is
-below the first's, as the reference does.
+``numpy.random.default_rng(0)``, which also draws a VLM's patch
+embeddings and an encoder-decoder's frames after each batch's tokens.
+Exits 0 only if the last step's loss is below the first's, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -61,6 +63,10 @@ def main(argv=None) -> int:
         if cfg.arch_type == "vlm":
             batch["patch_embeds"] = torch.from_numpy(
                 rng.standard_normal((args.batch, cfg.n_image_tokens, cfg.d_model))
+            ).to(device, cfg.activation_dtype)
+        if cfg.arch_type == "encdec":
+            batch["frames"] = torch.from_numpy(
+                rng.standard_normal((args.batch, cfg.encoder_seq, cfg.d_model))
             ).to(device, cfg.activation_dtype)
         return batch
 

@@ -1,16 +1,17 @@
 """Unified model API, the port of ``repro/models/api.py``: one dispatch
 point over the architecture families.
 
-Ported: ``dense``, ``moe``, ``vlm`` and ``ssm`` (init, loss, prefill,
-cache, decode, parameter counts).  ``loss`` is differentiable; on a card
-the ``dense``, ``moe`` and ``vlm`` families train through the attention
-kernels' backward and ``ssm`` through the SSD scan's.  ``hybrid`` and
-``encdec`` raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+Ported: ``dense``, ``moe``, ``vlm``, ``ssm`` and ``encdec`` (init, loss,
+prefill, cache, decode, parameter counts).  ``loss`` is differentiable;
+on a card the ``dense``, ``moe``, ``vlm`` and ``encdec`` families train
+through the attention kernels' backward and ``ssm`` through the SSD
+scan's.  ``hybrid`` raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
 
 Per-family inputs (all batched):
   prefill/loss : dense/moe/ssm -> {tokens, labels}
                  vlm       -> {tokens, labels, patch_embeds}
+                 encdec    -> {frames, tokens, labels}
   decode       : token (B, 1), pos, and the family's cache
 """
 from __future__ import annotations
@@ -23,15 +24,15 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..utils.tree import tree_leaves
+from . import encdec as E
 from . import ssm_lm as S
 from . import transformer as T
 
 Params = Dict[str, Any]
 
-PORTED = ("dense", "moe", "vlm", "ssm")
+PORTED = ("dense", "moe", "vlm", "ssm", "encdec")
 _TODO = {
     "hybrid": "the hybrid family: ROADMAP.md queue 1, item 15 (hybrid.py)",
-    "encdec": "the encoder-decoder family: ROADMAP.md queue 1, item 15 (encdec.py)",
 }
 
 
@@ -49,8 +50,11 @@ class ModelFamily:
 
     # -- init ----------------------------------------------------------------
     def init(self, gen: torch.Generator, device="cuda") -> Params:
-        if self._family() == "ssm":
+        a = self._family()
+        if a == "ssm":
             return S.init_ssm_lm(gen, self.cfg, device)
+        if a == "encdec":
+            return E.init_encdec(gen, self.cfg, device)
         return T.init_lm(gen, self.cfg, device)
 
     # -- loss ------------------------------------------------------------------
@@ -61,6 +65,8 @@ class ModelFamily:
         if a == "vlm":
             return T.lm_loss(params, batch["tokens"], batch["labels"], cfg,
                              prefix_embeds=batch["patch_embeds"])
+        if a == "encdec":
+            return E.encdec_loss(params, batch["frames"], batch["tokens"], batch["labels"], cfg)
         logits, _ = S.ssm_forward(params, batch["tokens"], cfg)
         return _nll(logits, batch["labels"])
 
@@ -72,19 +78,28 @@ class ModelFamily:
         if a == "vlm":
             return T.lm_forward(params, batch["tokens"], cfg,
                                 prefix_embeds=batch["patch_embeds"])[0]
+        if a == "encdec":
+            memory = E.encode(params, batch["frames"], cfg)
+            return E.decode_forward(params, batch["tokens"], memory, cfg)
         return S.ssm_forward(params, batch["tokens"], cfg)[0]
 
     # -- decode ----------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device="cuda") -> Dict[str, torch.Tensor]:
-        if self._family() == "ssm":
+        a = self._family()
+        if a == "ssm":
             return S.init_ssm_cache(self.cfg, batch, device)
+        if a == "encdec":
+            return E.init_encdec_cache(self.cfg, batch, max_seq, device)
         return T.init_kv_cache(self.cfg, batch, max_seq, device)
 
     def decode_step(self, params: Params, token: torch.Tensor, cache: Dict[str, torch.Tensor],
                     pos, sliding_window: Optional[int] = None):
         """(logits (B, 1, V), cache); the cache is updated in place."""
-        if self._family() == "ssm":
+        a = self._family()
+        if a == "ssm":
             return S.ssm_decode_step(params, token, cache, self.cfg)
+        if a == "encdec":
+            return E.encdec_decode_step(params, token, cache, pos, self.cfg)
         return T.lm_decode_step(params, token, cache, pos, self.cfg,
                                 sliding_window=sliding_window)
 

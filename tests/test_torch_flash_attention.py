@@ -34,11 +34,13 @@ def _tol(dtype):
     return 2e-2 if dtype == "bfloat16" else 2e-5
 
 
-def _qkv(B, S, H, KV, D, seed):
+def _qkv(B, S, H, KV, D, seed, sk=None):
+    """q (B, S, H, D), k and v (B, sk, KV, D) (sk = S unless given)."""
     rng = np.random.default_rng(seed)
+    sk = S if sk is None else sk
     return (rng.standard_normal((B, S, H, D)).astype(np.float32),
-            rng.standard_normal((B, S, KV, D)).astype(np.float32),
-            rng.standard_normal((B, S, KV, D)).astype(np.float32))
+            rng.standard_normal((B, sk, KV, D)).astype(np.float32),
+            rng.standard_normal((B, sk, KV, D)).astype(np.float32))
 
 
 def _torch(arrs, dtype, device="cpu"):
@@ -136,9 +138,8 @@ def test_rejects_bad_input(bad):
 @pytest.mark.parametrize("sq,sk", [(128, 256), (256, 128), (40, 33)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cpu_two_lengths_matches_jax_full_attention(sq, sk, dtype):
-    """The kernels take one length for queries and keys, but the CPU path
-    takes Sk != Sq as the reference does: full attention of q over longer
-    or shorter k and v equals the JAX ``full_attention`` within the
+    """Full attention of q over longer or shorter k and v (whisper's
+    cross-attention) equals the JAX ``full_attention`` within the
     reference's tolerance."""
     import jax.numpy as jnp
     from repro.models.layers import full_attention
@@ -152,35 +153,57 @@ def test_cpu_two_lengths_matches_jax_full_attention(sq, sk, dtype):
     _close(got.float(), np.asarray(want, np.float32), dtype)
 
 
-def test_launch_refuses_two_lengths_before_any_launch():
-    """The helper every CUDA call goes through before it launches (the
-    forward's ``_launch``) refuses k of another length than q, whatever the
-    device: the check runs before anything reaches the card."""
-    from repro_torch.kernels.flash_attention import _check_one_length, _launch
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (128, 256, True, None),    # longer keys: a query sees keys 0..i, as the TPU kernel's mask
+    (256, 128, True, None),    # shorter keys: queries past Sk see every key
+    (128, 256, True, 16),      # a window over longer keys
+    (256, 128, False, None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_two_lengths(sq, sk, causal, window, dtype):
+    """The plain forward at Sk != Sq against the reference's Pallas kernel
+    in interpret mode, whose grid walks Sk / 64 key blocks for Sq / 64
+    query blocks and compares key and query indices from 0."""
+    q, k, v = _qkv(1, sq, 4, 2, 64, seed=sq + 2 * sk, sk=sk)
+    want = _pallas(q, k, v, dtype, causal=causal, window=window)
+    got = ops.flash_attention(*_torch((q, k, v), dtype), causal=causal, window=window)
+    assert got.shape == (1, sq, 4, 64) and got.dtype == _DTYPES[dtype]
+    _close(got.float(), want, dtype)
 
-    q, _, _ = _torch(_qkv(1, 128, 4, 4, 64, seed=6), "float32")
-    k, v = (torch.zeros(1, 256, 4, 64) for _ in range(2))
-    before = flash_attention.launches
-    for call in (lambda: _check_one_length(q, k),
-                 lambda: _launch(q, k, v, False, None),
-                 lambda: _launch(q, k[:, :64], v[:, :64], True, None)):
-        with pytest.raises(ValueError, match="one length"):
-            call()
-    assert flash_attention.launches == before
-    _check_one_length(q, q)
 
+def test_plain_rows_with_no_key_are_zero():
+    """A window over keys shorter than the queries leaves rows from
+    Sk + window - 1 on with no key in range: the plain version gives them 0
+    (as the kernels do; the reference's softmax of no key is NaN there) and
+    the rows before them equal the reference's; their log-sum-exp is +inf,
+    so the plain backward gives finite gradients, which agree with
+    ``jax.grad`` of the reference over the rows that have keys."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import causal_attention
 
-@pytest.mark.parametrize("sk", [64, 256])
-def test_bwd_refuses_two_lengths(sk):
-    """The backward's plain version (and its kernel) assume one length, so
-    ``flash_attention_bwd`` refuses k of another length on the CPU too."""
-    q, _, _ = _torch(_qkv(1, 128, 4, 2, 16, seed=7), "float32")
-    k, v = (torch.randn(1, sk, 2, 16) for _ in range(2))
-    lse = torch.zeros(1, 4, 128)
-    before = flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="one length"):
-        flash_attention_bwd(q, k, v, q, lse, q, causal=False)
-    assert flash_attention_bwd.launches == before
+    Sq, Sk, W = 40, 20, 8
+    q, k, v = _qkv(2, Sq, 4, 2, 16, seed=12, sk=Sk)
+    n = Sk + W - 1
+    tq, tk, tv = _torch((q, k, v), "float32")
+    out = flash_attention(tq, tk, tv, window=W)
+    assert torch.equal(out[:, n:], torch.zeros_like(out[:, n:]))
+    want = causal_attention(jnp.asarray(q[:, :n]), jnp.asarray(k), jnp.asarray(v),
+                            sliding_window=W)
+    _close(out[:, :n], np.asarray(want), "float32")
+    lse = attention_lse_plain(tq, tk, window=W)
+    assert torch.isinf(lse[:, :, n:]).all() and (lse[:, :, n:] > 0).all()
+    assert torch.isfinite(lse[:, :, :n]).all()
+    dout = np.random.default_rng(13).standard_normal(q.shape).astype(np.float32)
+    dout[:, n:] = 0
+    got = flash_attention_bwd(tq, tk, tv, out, lse, torch.from_numpy(dout), window=W)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert torch.equal(got[0][:, n:], torch.zeros_like(got[0][:, n:]))
+    jg = jax.grad(lambda q, k, v: jnp.sum(causal_attention(q, k, v, sliding_window=W)
+                                          * dout[:, :n]), argnums=(0, 1, 2))(
+        jnp.asarray(q[:, :n]), jnp.asarray(k), jnp.asarray(v))
+    for g, w in zip((got[0][:, :n], got[1], got[2]), jg):
+        _close(g, np.asarray(w), "float32")
 
 
 @pytest.mark.parametrize("view,aligned", [
@@ -317,29 +340,6 @@ def test_kernel_refuses_grad_on_card():
         flash_attention(q, k, v)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_refuses_two_lengths_on_card(dtype):
-    """Card only: q (1, 128, 4, 64) over k and v of 256 (or 64) positions
-    would reach kernels that read one length; the forward (with or without
-    a gradient) and the backward raise before any launch."""
-    _card()
-    q, _, _ = _torch(_qkv(1, 128, 4, 4, 64, seed=8), dtype, "cuda")
-    before = (flash_attention.launches, flash_attention_bwd.launches)
-    for sk in (256, 64):
-        k, v = (torch.randn(1, sk, 4, 64, device="cuda").to(q.dtype) for _ in range(2))
-        with pytest.raises(ValueError, match="one length"):
-            flash_attention(q, k, v, causal=False)
-        with pytest.raises(ValueError, match="one length"):
-            flash_attention(q.clone().requires_grad_(True), k, v, causal=False)
-        with pytest.raises(ValueError, match="one length"):
-            flash_attention_bwd(q, k, v, q, torch.zeros(1, 4, 128, device="cuda"), q,
-                                causal=False)
-    torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention_bwd.launches) == before
-
-
-
 # ---------------------------------------------------------------------------
 # The gradient: autograd through the plain version against jax.grad of the
 # reference's attention, and the closed form against autograd
@@ -406,6 +406,47 @@ def test_bwd_plain_matches_autograd(case):
         _close(g, want.numpy(), "float32")
     assert flash_attention_bwd_plain(q, k, v, out.detach(), lse, dout, causal, window)[0] \
         .shape == q.shape
+
+
+_BWD_TWO_LENGTHS = [
+    # (B, Sq, Sk, H, KV, D, causal, window)
+    (1, 32, 64, 4, 4, 16, False, None),    # longer keys, full
+    (2, 48, 24, 8, 2, 16, False, None),    # shorter keys, GQA 4:1
+    (1, 37, 53, 4, 2, 16, False, None),    # ragged both
+    (1, 32, 64, 4, 2, 16, True, None),     # longer keys, causal
+    (2, 45, 19, 4, 1, 32, True, None),     # shorter keys, causal, MQA, ragged
+    (1, 30, 50, 4, 2, 16, True, 9),        # longer keys, a window
+]
+
+
+@pytest.mark.parametrize("case", _BWD_TWO_LENGTHS)
+def test_bwd_plain_two_lengths_matches_jax_grad(case):
+    """Sk != Sq: the backward kernel's plain version (closed form, from the
+    plain forward's output and log-sum-exp) and autograd through the plain
+    forward, each against ``jax.grad`` of the reference's
+    ``causal_attention`` / ``full_attention``, fp32 within 2e-5; dk and dv
+    have Sk rows."""
+    import jax
+    import jax.numpy as jnp
+
+    B, Sq, Sk, H, KV, D, causal, window = case
+    q, k, v = _qkv(B, Sq, H, KV, D, seed=Sq + Sk + H, sk=Sk)
+    dout = np.random.default_rng(3).standard_normal((B, Sq, H, D)).astype(np.float32)
+    fn = _jax_attention(causal, window)
+    jg = jax.grad(lambda q, k, v: jnp.sum(fn(q, k, v) * dout), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = _torch((q, k, v), "float32")
+    out = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    lse = attention_lse_plain(tq, tk, causal=causal, window=window)
+    assert lse.shape == (B, H, Sq)
+    closed = flash_attention_bwd(tq, tk, tv, out, lse, torch.from_numpy(dout), causal=causal,
+                                 window=window)
+    lq, lk, lv = (t.clone().requires_grad_(True) for t in (tq, tk, tv))
+    flash_attention(lq, lk, lv, causal=causal, window=window).backward(torch.from_numpy(dout))
+    for got, auto, want in zip(closed, (lq.grad, lk.grad, lv.grad), jg):
+        assert tuple(got.shape) == want.shape
+        _close(got, np.asarray(want), "float32")
+        _close(auto, np.asarray(want), "float32")
 
 
 def test_bwd_rejects_mismatched_saved_tensors():
@@ -482,6 +523,74 @@ def test_bwd_kernel_matches_plain_on_card(case, dtype):
             assert _rel_l2(got, w) <= 1e-2
         else:
             assert (got - w).abs().max().item() <= 2e-5 * max(1.0, w.abs().max().item())
+
+
+def _lse_err(got, want):
+    """max |got - want| where rows with no key (+inf in both) count as 0."""
+    return torch.where(got == want, 0.0, (got - want).abs()).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, D, causal, window)
+    (2, 448, 1500, 12, 12, 64, False, None),   # whisper's cross-attention, both ragged
+    (1, 1500, 1500, 12, 12, 64, False, None),  # whisper's encoder
+    (2, 300, 130, 4, 2, 128, False, None),     # shorter keys, GQA
+    (1, 130, 300, 4, 2, 128, True, None),      # longer keys, causal
+    (1, 300, 130, 8, 2, 64, True, None),       # shorter keys, causal
+    (1, 200, 100, 4, 2, 64, True, 40),         # a window: rows from 139 on have no key
+    (1, 100, 700, 4, 4, 128, True, 200),       # a window over longer keys
+    (2, 64, 1, 4, 4, 64, False, None),         # one key
+    (2, 1, 300, 8, 2, 128, False, None),       # one query
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_lengths_on_card(case, dtype):
+    """Card only: both kernels at Sk != Sq against their plain versions on
+    the same inputs, one launch each: the forward within 2e-5 (fp32) or
+    2e-2 (bf16), its log-sum-exp within 2e-5 of its scale (+inf in both
+    where a row has no key), the backward's gradients computed in fp32 by
+    the plain version within 2e-5 of each one's max |.| (fp32) or 1e-2
+    relative L2 (bf16); with one key dq and dk are 0 in exact arithmetic
+    and are held against max |dv|.  A second backward launch is
+    bit-equal."""
+    _card()
+    B, Sq, Sk, H, KV, D, causal, window = case
+    q, k, v = _torch(_qkv(B, Sq, H, KV, D, seed=Sq + Sk + D, sk=Sk), dtype, "cuda")
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                       device="cuda").to(q.dtype)
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    torch.testing.assert_close(out.float(), want.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    from repro_torch.kernels.flash_attention import _launch
+
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    o = _launch(q, k, v, causal, window, lse=lse)
+    lse_want = attention_lse_plain(q.float(), k.float(), causal, window)
+    finite = torch.isfinite(lse_want)
+    assert _lse_err(lse, lse_want) <= 2e-5 * max(1.0, lse_want[finite].abs().max().item())
+    grads = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                      dout.float(), causal, window)
+    dv_scale = grads[2].abs().max().item()
+    for name, got, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), grads):
+        assert got.shape == w.shape and got.dtype == q.dtype
+        assert bool(torch.isfinite(got).all())
+        if Sk == 1 and name != "dv":
+            assert (got.float() - w).abs().max().item() <= _tol(dtype) * dv_scale
+        elif dtype == "bfloat16":
+            assert _rel_l2(got, w) <= 1e-2
+        else:
+            assert (got - w).abs().max().item() <= 2e-5 * max(1.0, w.abs().max().item())
+    first = flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
+    second = flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
