@@ -21,17 +21,20 @@ or of the JAX package.  In order it:
      MHA / GQA / MQA at both head widths, windows inside and across tiles,
      full attention, ragged S, keys longer or shorter than the queries
      (full, causal and windowed, one key, one query), fp32 and bf16,
-     olmo-1b's prefill and whisper-small's three attention calls;
+     olmo-1b's prefill, jamba-1.5-large-398b's (64 query over 8 KV heads of
+     128) and whisper-small's three attention calls;
      ``ssd_chunk_scan`` over the reference's sweep, head counts and chunks
      off the kernel's tiles, the state continuation, the O(L) recurrence and
-     mamba2-130m's prefill);
+     the prefills of mamba2-130m and jamba (256 SSD heads); the main
+     paths' shapes each relaunched bit-equal);
   4. times each kernel at its path's shape (CUDA events around each
      launch after warm-up; 4 rounds of 10 launches each of kernel, plain
      version and one PyTorch library call computing the same function,
      where there is one, in alternating order; median and quartiles)
      beside its bound, with the card's clocks and power after (both flash
-     kernels also at whisper-small's encoder, 1500 x 1500, and
-     cross-attention, 448 queries over 1500 keys, against SDPA); splits the
+     kernels also at granite's and jamba's GQA shapes and at whisper-small's
+     encoder, 1500 x 1500, and cross-attention, 448 queries over 1500 keys,
+     against SDPA; the scan and its backward also at jamba's); splits the
      dense fold at that shape into flatten, reduce and unflatten, and the
      compressed round's server work into encode, wire frame and fold;
   5. runs the dense main path at the paper's FEMNIST width
@@ -65,8 +68,14 @@ or of the JAX package.  In order it:
      timed 5 times and traced once, the serve driver, and the prefill
      against serving the same tokens one by one from the cross cache that
      ``decode_forward(return_cache=True)`` fills, in bf16 and in fp32;
+     Then the hybrid family: jamba-1.5-large-398b at full width, one
+     superblock of 8 layers (``JAMBA_SERVE_CUT``: 4 of its 16 experts,
+     16.2 B parameters) in bf16, a (4, 2048) prefill with 1 flash and 7 SSD
+     scan launches, timed 5 times and traced once, the serve driver, and
+     the prefill against serving at capacity factor E/K, in bf16 and in
+     fp32 (at ``JAMBA_TRAIN_CUT``);
   9. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
-     deepseek-moe-16b and whisper-small in fp32 on the card and on the CPU
+     deepseek-moe-16b, whisper-small and jamba in fp32 on the card and on the CPU
      from the same weights: prefill logits, greedy tokens and (MoE) every
      layer's expert choices and keep masks;
  10. trains olmo-1b at full width (bf16, (2, 2048) batches): the flash
@@ -113,8 +122,14 @@ or of the JAX package.  In order it:
      timed steps and one traced, each with 36 forward and 36 backward flash
      launches, and ``python -m repro_torch.launch.train --arch
      whisper-small`` with the trainer's defaults (exit 0);
- 17. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
-     deepseek-moe-16b and whisper-small in fp32 on the card and on the CPU
+ 17. trains jamba-1.5-large-398b at its training cut (``JAMBA_TRAIN_CUT``:
+     one superblock, d_ff 1024, 5.79 B parameters; bf16 with the config's
+     bf16 AdamW moments, (1, 2048) batches): two gradients bit-equal, five
+     timed steps and one traced, each with 1 + 7 forward and 1 + 7
+     backward launches, the loss falling (no trainer process: its CLI
+     takes no cut);
+ 18. runs reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
+     deepseek-moe-16b, whisper-small and jamba in fp32 on the card and on the CPU
      from the same weights: one train step each, and one federated LoRA
      round of olmo-1b over 2 silos (adapters within 1e-4, base bit-equal,
      traces equal).
@@ -160,6 +175,23 @@ LORA_LAYERS = 4                 # olmo-1b's depth in the LoRA rounds (of 16; ful
 SSM_B = 4                       # mamba2-130m's training batch (4, 2048)
 MOE_BF16_TOL = 0.2              # MoE prefill against token-by-token serving, bf16 (phase_moe_paths)
 ZOO_SILOS = 2                   # silos of the zoo's FedAvg rounds (mamba2-130m, granite-moe)
+# jamba-1.5-large-398b (arXiv:2403.19887) on one card.  Its 72 layers are 9
+# superblocks of 8 (7 Mamba, 1 attention; MoE every second layer), and one
+# superblock at the published widths holds 45.1 B parameters, so both cuts
+# keep one superblock (n_layers 72 -> 8) and every width but the one named:
+# - serving: n_experts 16 -> 4 (top_k 2 kept, so a token's routed work is
+#   the same; the router is 4 wide): 16,153,237,504 parameters, 32.3 GB in
+#   bf16;
+# - training: d_ff 24576 -> 1024 (dense and expert FFNs, 16 experts top 2):
+#   5,785,311,232 parameters; weights, gradients and the config's bf16 AdamW
+#   moments take 8 B a parameter, and the out-of-place update holds a second
+#   copy of weights and moments.
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_SERVE_CUT = {"n_layers": 8, "n_experts": 4}
+JAMBA_TRAIN_CUT = {"n_layers": 8, "d_ff": 1024}
+JAMBA_ATTN = (64, 8, 128)              # query heads, KV heads (GQA 8:1), head width
+JAMBA_SSD = (256, 64, 128, 256)        # SSD heads (d_inner 16384), head dim, state, chunk
+JAMBA_BF16_TOL = 0.5    # jamba's bf16 prefill against its token-by-token serving (phase_hybrid_paths)
 
 
 def check(cond: bool, what: str) -> None:
@@ -241,6 +273,11 @@ def zero_counts() -> None:
 def counts() -> dict:
     """Every kernel's launch count, read just after a path is driven."""
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _nonzero(launches: dict) -> dict:
+    """The kernels of a ``counts()`` that launched."""
+    return {k: n for k, n in launches.items() if n}
 
 
 def rel_l2(got, want) -> float:
@@ -962,9 +999,11 @@ def phase_flash_check():
     version rounds the softmax weights to bf16, the kernel keeps them in
     fp32), and the main paths' calls: olmo-1b's and deepseek-moe-16b's
     prefill (B 4, S 2048, 16 heads of 128, bf16, causal),
-    granite-moe-1b-a400m's (16 query heads over 8 KV heads of 64) and
+    granite-moe-1b-a400m's (16 query heads over 8 KV heads of 64),
+    jamba-1.5-large-398b's (64 query heads over 8 KV heads of 128) and
     whisper-small's three (``WHISPER_ATTN``), whose largest error is
-    returned.
+    returned; each of those is launched a second time and must be
+    bit-equal.
 
     A bf16 output is also held, as a whole, against the plain version
     computed in fp32 from the same bf16 inputs: relative L2 within 1e-2.
@@ -991,12 +1030,14 @@ def phase_flash_check():
                   (1, 1000, 8, 2, 128, True, 200, dt), (1, 512, 4, 4, 64, True, 300, dt),
                   (1, 256, 8, 2, 128, True, None, dt), (1, 256, 4, 1, 64, True, None, dt)]
     main_cases = [(PREFILL_B, PREFILL_S, 16, 16, 128, True, None, torch.bfloat16),
-                  (PREFILL_B, PREFILL_S, 16, 8, 64, True, None, torch.bfloat16)]
+                  (PREFILL_B, PREFILL_S, 16, 8, 64, True, None, torch.bfloat16),
+                  (PREFILL_B, PREFILL_S, *JAMBA_ATTN, True, None, torch.bfloat16)]
     cases = [c[:2] + c[1:] for c in cases + main_cases]   # Sk = S
     main_cases = [c[:2] + c[1:] for c in main_cases]
-    main_cases += [c + (None, torch.bfloat16) for c in WHISPER_ATTN.values()]
-    cases += (_two_length_cases(torch.float32) + _two_length_cases(torch.bfloat16)
-              + main_cases[2:])
+    cases += _two_length_cases(torch.float32) + _two_length_cases(torch.bfloat16)
+    whisper = [c + (None, torch.bfloat16) for c in WHISPER_ATTN.values()]
+    main_cases += whisper
+    cases += whisper
     main_err = 0.0
     for case in cases:
         B, S, Sk, H, KV, D, causal, window, dt = case
@@ -1023,6 +1064,10 @@ def phase_flash_check():
         check(ok, f"flash_attention {case} within {tol}")
         if case in main_cases:
             main_err = max(main_err, err)
+            same = torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
+            say(f"[check] flash_attention at {case[:6]}, a second launch on the same inputs: "
+                f"bit-equal {same}")
+            check(same, "flash_attention is deterministic")
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return main_err
@@ -1060,39 +1105,54 @@ def phase_ssd_check():
     """ssd_chunk_scan against its plain version on the card: the reference
     tests' sweep (tests/test_kernels.py:99-150, fp32, 2e-5 scaled), the
     initial-state continuation and the O(L) recurrence ``ssd_reference``
-    (1e-3, as there), and mamba2-130m's prefill (B 4, L 2048, 24 heads of
-    P 64, N 128, chunk 256) in fp32 and in bf16 (the main path's call; y
+    (1e-3, as there), and the prefills of mamba2-130m (B 4, L 2048, 24
+    heads of P 64, N 128, chunk 256) and jamba-1.5-large-398b (256 heads)
+    in fp32 and in bf16 (the main paths' calls; y
     comes back in bf16, 2e-2, and as a whole within 1e-2 relative L2 of
     the plain version computed in fp32 from the same bf16 inputs: the
     output's rounding alone gives ~1e-3), and the kernel's edges (H not a
     multiple of its head group of 4, chunks of 96, 150 and 160 positions).
-    At that shape and at the edges the kernel's three outputs are also held
-    against its plain version alone (2e-5 scaled); the largest error of
-    those at mamba2-130m's shape in bf16 is returned."""
+    At those shapes and at the edges the kernel's three outputs are also
+    held against its plain version alone (2e-5 scaled), and at those shapes
+    a second launch must be bit-equal; the largest error of the kernel
+    alone at the two prefills' shapes in bf16 is returned.
+
+    At jamba's shape the fp32 parts (y in fp32, the state, the kernel
+    alone) are held within 1e-4 scaled, and in fp32 both versions are also
+    held against the same algorithm in fp64 (``_ssd_fp64``), the kernel
+    within 1e-4 scaled.  256 draws of A = -exp(N(0, 1)) reach |A| ~ 6, so
+    a chunk's cumulative exponents reach ~3700, where fp32's spacing is
+    2.4e-4: each fp32 version's decays carry errors the reference sweep's
+    4 to 8 heads never reach.  Against fp64 each fp32 version then reads
+    1e-5 to 3e-5 of scale (both printed), so the two differ by up to their
+    sum, beyond the sweep's 2e-5; a wrong head or chunk gives errors of the
+    outputs' own scale."""
     import torch
     from repro_torch.kernels.ssd_scan import (
         ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk, ssd_intra_chunk_plain)
     from repro_torch.models.mamba2 import ssd_reference
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    full = (PREFILL_B, PREFILL_S, 24, 64, 128, 256)
+    jamba = (PREFILL_B, PREFILL_S, *JAMBA_SSD)
+    mains = [(PREFILL_B, PREFILL_S, 24, 64, 128, 256), jamba]
     cases = [((2, 64, 4, 16, 32, 16), torch.float32), ((2, 128, 8, 32, 64, 32), torch.float32),
-             ((2, 256, 8, 64, 128, 64), torch.float32), ((2, 200, 4, 32, 16, 100), torch.float32),
-             (full, torch.float32), (full, torch.bfloat16)]
+             ((2, 256, 8, 64, 128, 64), torch.float32), ((2, 200, 4, 32, 16, 100), torch.float32)]
+    cases += [(full, dt) for full in mains for dt in (torch.float32, torch.bfloat16)]
     # The kernel's edges: H not a multiple of its head group (4) and a chunk
     # not a multiple of its 64-position tiles, in both dtypes.
     edges = [((1, 192, 6, 64, 128, 96), torch.float32), ((1, 192, 6, 64, 128, 96), torch.bfloat16),
              ((2, 300, 5, 16, 36, 150), torch.bfloat16), ((1, 320, 7, 32, 64, 160), torch.float32)]
     cases += edges
-    main_err = None
+    main_err = 0.0
     for (B, L, H, P, N, Q), dt in cases:
         args = _ssd_inputs(B, L, H, P, N, dt, gen)
         y, h = ssd_chunk_scan(*args, chunk=Q)
         torch.cuda.synchronize()
         y_want, h_want = ssd_chunk_scan_plain(*args, Q)
-        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        fp32_tol = 1e-4 if (B, L, H, P, N, Q) == jamba else 2e-5
+        tol = 2e-2 if dt == torch.bfloat16 else fp32_tol
         ok_y, err_y = _scaled_close(y, y_want, tol)
-        ok_h, err_h = _scaled_close(h, h_want, 2e-5)
+        ok_h, err_h = _scaled_close(h, h_want, fp32_tol)
         l2 = ""
         if dt == torch.bfloat16:
             del y_want
@@ -1102,19 +1162,36 @@ def phase_ssd_check():
             l2 = f", y relative L2 against fp32 plain {rel:.3e} (tol 1e-2)"
         say(f"[check] ssd_chunk_scan B={B} L={L} H={H} P={P} N={N} chunk={Q} {str(dt)[6:]}: "
             f"max|kernel-plain| y {err_y:.3e} (tol {tol:g} scaled), state {err_h:.3e} "
-            f"(tol 2e-05 scaled){l2} {'ok' if ok_y and ok_h else 'FAIL'}")
+            f"(tol {fp32_tol:g} scaled){l2} {'ok' if ok_y and ok_h else 'FAIL'}")
         check(ok_y and ok_h and y.dtype == dt, f"ssd_chunk_scan {(B, L, H, P, N, Q, dt)}")
-        if (B, L, H, P, N, Q) == full or ((B, L, H, P, N, Q), dt) in edges:
+        if (B, L, H, P, N, Q) == jamba and dt == torch.float32:
+            for name, got, plain, exact in zip(("y", "state"), (y, h), (y_want, h_want),
+                                               _ssd_fp64(*args, Q)):
+                ok, err = _scaled_close(got, exact, fp32_tol)
+                err_plain = _scaled_close(plain, exact, fp32_tol)[1]
+                scale = max(1.0, exact.abs().max().item())
+                say(f"[check]   {name} against the same algorithm in fp64: kernel "
+                    f"{err / scale:.3e} of scale (tol {fp32_tol:g}), plain version "
+                    f"{err_plain / scale:.3e} {'ok' if ok else 'FAIL'}")
+                check(ok, f"ssd_chunk_scan {name} against fp64 at {jamba}")
+                del exact
+        if (B, L, H, P, N, Q) in mains or ((B, L, H, P, N, Q), dt) in edges:
             errs = []
-            for name, g, w in zip(("y_diag", "states", "a_cs"), ssd_intra_chunk(*args, Q),
+            alone = ssd_intra_chunk(*args, Q)
+            for name, g, w in zip(("y_diag", "states", "a_cs"), alone,
                                   ssd_intra_chunk_plain(*args, Q)):
-                ok, err = _scaled_close(g, w, 2e-5)
+                ok, err = _scaled_close(g, w, fp32_tol)
                 errs.append(err)
                 say(f"[check]   kernel alone, {name}: max|kernel-plain|={err:.3e} "
-                    f"(tol 2e-05 scaled) {'ok' if ok else 'FAIL'}")
+                    f"(tol {fp32_tol:g} scaled) {'ok' if ok else 'FAIL'}")
                 check(ok, f"ssd_intra_chunk {name} at {(B, L, H, P, N, Q)} {dt}")
-            if (B, L, H, P, N, Q) == full and dt == torch.bfloat16:
-                main_err = max(errs)
+            if (B, L, H, P, N, Q) in mains:
+                if dt == torch.bfloat16:
+                    main_err = max(main_err, *errs)
+                same = all(torch.equal(a, b) for a, b in zip(alone, ssd_intra_chunk(*args, Q)))
+                say(f"[check]   kernel alone, a second launch on the same inputs: bit-equal {same}")
+                check(same, "ssd_intra_chunk is deterministic")
+            del alone
         del args, y, h, y_want, h_want
 
     x, dt_, A, Bm, Cm = _ssd_inputs(1, 128, 4, 8, 16, torch.float32, gen)
@@ -1135,6 +1212,31 @@ def phase_ssd_check():
     return main_err
 
 
+def _ssd_fp64(x, dt, A, Bm, Cm, Q: int) -> tuple:
+    """(y, final state) of ``ssd_chunked``'s algorithm computed in fp64
+    from the same inputs: the exact value both fp32 versions round."""
+    import torch
+
+    Bsz, L, H, P = x.shape
+    N, n = Bm.shape[-1], L // Q
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    xdt = (x * dt[..., None]).reshape(Bsz, n, Q, H, P)
+    Bc, Cc = Bm.reshape(Bsz, n, Q, N), Cm.reshape(Bsz, n, Q, N)
+    a_cs = torch.cumsum((dt * A).reshape(Bsz, n, Q, H), 2)            # (B, C, Q, H)
+    seg = a_cs.transpose(2, 3)[..., :, None] - a_cs.transpose(2, 3)[..., None, :]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    decay = torch.exp(seg.masked_fill(~causal, float("-inf")))      # (B, C, H, Q, Q)
+    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    y = torch.einsum("bchls,bcshp->bclhp", decay * scores[:, :, None], xdt)
+    to_end = xdt * torch.exp(a_cs[:, :, -1:] - a_cs)[..., None]
+    states = torch.einsum("bcsn,bcshp->bchpn", Bc, to_end)
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float64, device=x.device)
+    for c in range(n):
+        y[:, c] += torch.einsum("bln,bhpn->blhp", Cc[:, c], h) * torch.exp(a_cs[:, c])[..., None]
+        h = h * torch.exp(a_cs[:, c, -1])[..., None, None] + states[:, c]
+    return y.reshape(Bsz, L, H, P), h
+
+
 def phase_zoo_timing():
     """Both kernels at the full-width prefill shapes: kernel, plain version
     and (flash only) ``F.scaled_dot_product_attention`` in alternating
@@ -1145,8 +1247,9 @@ def phase_zoo_timing():
     keys in two products of 2·D), on the bf16 tensor cores' 989 TFLOP/s;
     the bytes are q, k, v and o read or written once.
 
-    ssd_chunk_scan, mamba2-130m: the kernel alone (the intra-chunk part) on
-    x (4, 2048, 24, 64), B, C (4, 2048, 128) in bf16, dt fp32, chunk 256.
+    ssd_chunk_scan, mamba2-130m and jamba-1.5-large-398b: the kernel alone
+    (the intra-chunk part) on x (4, 2048, 24, 64) and (4, 2048, 256, 64), B,
+    C (4, 2048, 128) in bf16, dt fp32, chunk 256 (``_ssd_fwd_row``).
     Its arithmetic is the reference's, in fp32, counted where the decay
     is not zero (s <= l, as the flash count is causal): y Q·(Q+1)·P and
     the state 2·P·N·Q per (b, chunk, head), the scores Q·(Q+1)·N per
@@ -1156,8 +1259,6 @@ def phase_zoo_timing():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-    from repro_torch.kernels.ssd_scan import (
-        ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk, ssd_intra_chunk_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     out = {}
@@ -1177,7 +1278,20 @@ def phase_zoo_timing():
                                         "F.scaled_dot_product_attention(is_causal=True)")
     del q, k, v, qt, kt, vt
 
-    B, L, H, P, N, Q = PREFILL_B, PREFILL_S, 24, 64, 128, 256
+    out["ssd_chunk_scan"] = _ssd_fwd_row("mamba2-130m", PREFILL_B, PREFILL_S, 24, 64, 128, 256,
+                                         gen)
+    out["ssd_chunk_scan jamba"] = _ssd_fwd_row(JAMBA, PREFILL_B, PREFILL_S, *JAMBA_SSD, gen)
+    return out
+
+
+def _ssd_fwd_row(what: str, B: int, L: int, H: int, P: int, N: int, Q: int, gen) -> dict:
+    """The SSD forward kernel alone and its plain version at one bf16
+    prefill shape in alternating rounds, beside its bound
+    (``phase_zoo_timing``), then the whole scan and plain ``ssd_chunked``."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk, ssd_intra_chunk_plain)
+
     args = _ssd_inputs(B, L, H, P, N, torch.bfloat16, gen)
     q4, n = alternating({
         "kernel": lambda: ssd_intra_chunk(*args, Q),
@@ -1188,17 +1302,16 @@ def phase_zoo_timing():
     nbytes = (B * L * H * P * 2 + 2 * B * L * N * 2 + B * L * H * 4
               + B * C * H * (Q * P + P * N + Q) * 4)
     row = _bound_row(q4, n, flops, FP32_FLOPS_PER_S, nbytes,
-                     "ssd_chunk_scan kernel alone, mamba2-130m prefill (4, 2048, 24, 64), N 128, "
-                     "chunk 256, bf16", None)
+                     f"ssd_chunk_scan kernel alone, {what} prefill ({B}, {L}, {H}, {P}), N {N}, "
+                     f"chunk {Q}, bf16", None)
     scan, _ = alternating({"kernel": lambda: ssd_chunk_scan(*args, chunk=Q),
                            "plain": lambda: ssd_chunk_scan_plain(*args, Q)})
     row["whole_scan_ms"], row["whole_scan_plain_ms"] = scan["kernel"][1], scan["plain"][1]
     say(f"[time] the whole scan (kernel + inter-chunk torch ops) {scan['kernel'][1]:.4f} ms, "
         f"plain ssd_chunked {scan['plain'][1]:.4f} ms")
-    out["ssd_chunk_scan"] = row
     del args
     torch.cuda.empty_cache()
-    return out
+    return row
 
 
 def _bound_row(q4: dict, n: int, flops: float, peak: float, nbytes: float, what: str,
@@ -1361,7 +1474,7 @@ def _serve_cache(model, params, batch: dict, max_len: int):
     return cache
 
 
-def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, kernel: str,
+def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int,
                  tol: float, full_prefill: bool, overrides: "dict | None" = None,
                  check_overrides: "dict | None" = None,
                  shape: tuple = (PREFILL_B, PREFILL_S)) -> dict:
@@ -1381,8 +1494,8 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
     ``check_overrides`` (an MoE model's capacity factor at which its
     prefill drops nothing, as decoding one token never does).  Every
     kernel's count is set to 0 just before each run and read just after:
-    ``kernel`` launches ``_attention_launches`` times a prefill (and a
-    cache fill) and never in decode.  For an MoE model the warm-up prefill
+    a prefill (and a cache fill) launches the kernels ``_launches`` gives,
+    and decode none.  For an MoE model the warm-up prefill
     counts its dropped assignments, and the check prints the share of
     expert choices that differ between its two runs."""
     import numpy as np
@@ -1400,14 +1513,14 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
     init_peak = torch.cuda.max_memory_allocated()
     n_params = model.param_count(params)
     prefill = make_prefill_step(model)
-    per_prefill = _attention_launches(cfg)
+    per_prefill = _launches(cfg)
     only = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(0)
     moe = cfg.n_experts > 0
     B, S = shape
     out = {"arch": arch, "dtype": dtype, "params": n_params, "n_layers": cfg.n_layers,
            "init_peak_bytes": init_peak}
-    tag = f"[zoo] {arch} {dtype}" + (f" ({cfg.n_layers} layers)" if overrides else "")
+    tag = f"[zoo] {arch} {dtype}" + (f" ({overrides})" if overrides else "")
     say(f"{tag}: {n_params:,} params, {sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} GB; "
         f"max_memory_allocated at init {init_peak / 2**30:.2f} GiB")
 
@@ -1439,15 +1552,15 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
             f"{launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
         check(tuple(logits.shape) == (B, S, cfg.vocab_size)
               and logits.dtype == torch.float32 and finite, f"{arch} prefill logits")
-        check(all(n == only | {kernel: per_prefill} for n in all_launches),
-              f"{arch} prefill: exactly {per_prefill} {kernel} launches a run, got {all_launches}")
+        check(all(n == only | per_prefill for n in all_launches),
+              f"{arch} prefill: exactly {per_prefill} launches a run, got {all_launches}")
         check(bit_equal, f"{arch}: two prefills of the same batch are bit-equal")
         out.update(prefill_s=med, prefill_s_quartiles=(q1, med, q3), prefill_s_runs=times,
                    prefill_launches=launches, prefill_peak_bytes=peak,
                    prefill_bit_equal=bit_equal)
         zero_counts()
         out["prefill_trace"] = _trace_prefill(lambda: prefill(params, batch), tag)
-        check(counts() == only | {kernel: per_prefill}, f"{arch} traced prefill launches")
+        check(counts() == only | per_prefill, f"{arch} traced prefill launches")
         del logits, batch
 
     if check_overrides:
@@ -1460,7 +1573,7 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
     zero_counts()
     cache = _serve_cache(model, params, prompt, prompt_len + decode_tokens)
     fill_launches = counts()
-    check(fill_launches == (only if cache is None else only | {kernel: per_prefill}),
+    check(fill_launches == (only if cache is None else only | per_prefill),
           f"{arch} serve cache fill launches {fill_launches}")
     zero_counts()
     with recorded_routing() as served:
@@ -1501,7 +1614,7 @@ def _serve_check(arch: str, dtype: str, prompt_len: int, decode_tokens: int, ker
         f"{err:.3e} (tol {tol:g}), max|diff| {max_abs:.3e} (max|logit| "
         f"{logits.abs().max().item():.3f}), argmax agreement {agree:.4f}; launches {launches}"
         + routing)
-    check(launches == only | {kernel: per_prefill}, f"{arch} prompt prefill launches")
+    check(launches == only | per_prefill, f"{arch} prompt prefill launches")
     check(err <= tol, f"{arch} {dtype} prefill agrees with token-by-token serving within {tol}")
     out.update(serve_prefill_s=res.prefill_s, decode_ms_per_token=ms_tok,
                serve_launches=serve_launches, prompt_prefill_launches=launches,
@@ -1531,14 +1644,10 @@ def phase_zoo_paths():
     0.5 there, which catches only gross faults (the fp32 check holds the
     scan tightly)."""
     out = {}
-    out["olmo-1b bf16"] = _serve_check("olmo-1b", "bfloat16", 32, 16, "flash_attention",
-                                       5e-2, True)
-    out["mamba2-130m bf16"] = _serve_check("mamba2-130m", "bfloat16", 256, 16, "ssd_chunk_scan",
-                                           0.5, True)
-    out["olmo-1b fp32"] = _serve_check("olmo-1b", "float32", 32, 2, "flash_attention",
-                                       1e-3, False)
-    out["mamba2-130m fp32"] = _serve_check("mamba2-130m", "float32", 256, 2, "ssd_chunk_scan",
-                                           1e-3, False)
+    out["olmo-1b bf16"] = _serve_check("olmo-1b", "bfloat16", 32, 16, 5e-2, True)
+    out["mamba2-130m bf16"] = _serve_check("mamba2-130m", "bfloat16", 256, 16, 0.5, True)
+    out["olmo-1b fp32"] = _serve_check("olmo-1b", "float32", 32, 2, 1e-3, False)
+    out["mamba2-130m fp32"] = _serve_check("mamba2-130m", "float32", 256, 2, 1e-3, False)
     return out
 
 
@@ -1551,13 +1660,24 @@ def _frames(rng, batch: int, cfg, device="cuda"):
         device, cfg.activation_dtype)
 
 
-def _attention_launches(cfg) -> int:
-    """Kernel launches of one prefill (or one backward): one a layer (its
-    attention, or its scan), and for an encoder-decoder the encoder's layers
-    plus two a decoder layer (self and cross)."""
+def _launches(cfg, backward: bool = False) -> dict:
+    """Kernel launches of one prefill (with ``backward``: the backward
+    launches of one train step), by kernel: ``flash_attention`` once an
+    attention (for an encoder-decoder the encoder's layers plus two a
+    decoder layer, self and cross) and ``ssd_chunk_scan`` once a Mamba layer
+    (every layer of an SSM; in a hybrid every layer but one in each
+    ``attn_period``)."""
+    n_attn, n_ssd = cfg.n_layers, 0
     if cfg.arch_type == "encdec":
-        return cfg.n_encoder_layers + 2 * cfg.n_layers
-    return cfg.n_layers
+        n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    elif cfg.arch_type == "ssm":
+        n_attn, n_ssd = 0, cfg.n_layers
+    elif cfg.arch_type == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_period
+        n_ssd = cfg.n_layers - n_attn
+    names = (("flash_attention_bwd", "ssd_intra_chunk_bwd") if backward
+             else ("flash_attention", "ssd_chunk_scan"))
+    return {k: n for k, n in zip(names, (n_attn, n_ssd)) if n}
 
 
 def phase_encdec_paths():
@@ -1569,18 +1689,19 @@ def phase_encdec_paths():
     check again in fp32.  Tolerances as for the other families
     (``phase_zoo_paths``): 5e-2 in bf16, 1e-3 in fp32."""
     shape = (WHISPER_B, WHISPER_S)
-    return {"whisper-small bf16": _serve_check("whisper-small", "bfloat16", 32, 16,
-                                               "flash_attention", 5e-2, True, shape=shape),
-            "whisper-small fp32": _serve_check("whisper-small", "float32", 32, 2,
-                                               "flash_attention", 1e-3, False, shape=shape)}
+    return {"whisper-small bf16": _serve_check("whisper-small", "bfloat16", 32, 16, 5e-2, True,
+                                               shape=shape),
+            "whisper-small fp32": _serve_check("whisper-small", "float32", 32, 2, 1e-3, False,
+                                               shape=shape)}
 
 
-def _drop_free(arch: str) -> dict:
-    """The capacity factor E/K, at which capacity >= T: an MoE prefill then
-    drops nothing, as token-by-token decoding never does."""
+def _drop_free(arch: str, overrides: "dict | None" = None) -> dict:
+    """The capacity factor E/K (of the config with ``overrides``), at which
+    capacity >= T: an MoE prefill then drops nothing, as token-by-token
+    decoding never does."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).with_overrides(**(overrides or {}))
     return {"moe_capacity_factor": cfg.n_experts / cfg.top_k}
 
 
@@ -1609,26 +1730,66 @@ def phase_moe_paths():
     that differ is printed.  The fp32 checks hold the MoE path tightly."""
     out = {}
     for arch, decode in (("granite-moe-1b-a400m", 16), ("deepseek-moe-16b", 4)):
-        out[f"{arch} bf16"] = _serve_check(arch, "bfloat16", 32, decode, "flash_attention",
-                                           MOE_BF16_TOL, True, check_overrides=_drop_free(arch))
+        out[f"{arch} bf16"] = _serve_check(arch, "bfloat16", 32, decode, MOE_BF16_TOL, True,
+                                           check_overrides=_drop_free(arch))
     out["granite-moe-1b-a400m fp32"] = _serve_check(
-        "granite-moe-1b-a400m", "float32", 32, 2, "flash_attention", 1e-3, False,
+        "granite-moe-1b-a400m", "float32", 32, 2, 1e-3, False,
         check_overrides=_drop_free("granite-moe-1b-a400m"))
     out["deepseek-moe-16b fp32"] = _serve_check(
-        "deepseek-moe-16b", "float32", 32, 2, "flash_attention", 1e-3, False,
+        "deepseek-moe-16b", "float32", 32, 2, 1e-3, False,
         overrides={"n_layers": 2}, check_overrides=_drop_free("deepseek-moe-16b"))
     return out
 
 
+def phase_hybrid_paths():
+    """jamba-1.5-large-398b's serve path (``_serve_check``) at full width
+    and one superblock: in bf16 at the serving cut (``JAMBA_SERVE_CUT``),
+    the (4, 2048) prefill (1 flash and 7 SSD scan launches) timed and
+    traced, the serve driver on a (4, 256) prompt (a whole SSD chunk, which
+    the prefill needs), and the prefill-against-serving check at capacity
+    factor E/K = 2; then that check in fp32 at the training cut
+    (``JAMBA_TRAIN_CUT``, 23.1 GB; the serving cut in fp32 would be 64.6
+    GB).  First no earlier model may still hold the card's memory.
+
+    Tolerances (relative L2 over all logits): fp32 1e-3, as for the other
+    families.  bf16: JAMBA_BF16_TOL, 0.5, mamba2-130m's, which catches only
+    gross faults: the two paths round differently in bf16 (see
+    ``phase_zoo_paths``), seven of the eight layers are Mamba layers, whose
+    plain bf16 prefill against their plain bf16 decode already read 0.197
+    through mamba2-130m's 24 layers, and the MoE layers' near ties can send
+    a token to another expert in one path (``phase_moe_paths``).  The fp32
+    check holds the path tightly."""
+    import torch
+
+    held = torch.cuda.memory_allocated()
+    say(f"[zoo] {JAMBA}: memory_allocated before its weights {held / 2**30:.2f} GiB")
+    check(held < 2**30, "no earlier model holds the card's memory")
+    return {
+        f"{JAMBA} bf16": _serve_check(JAMBA, "bfloat16", JAMBA_SSD[3], 8, JAMBA_BF16_TOL, True,
+                                      overrides=JAMBA_SERVE_CUT,
+                                      check_overrides=_drop_free(JAMBA, JAMBA_SERVE_CUT)),
+        f"{JAMBA} fp32": _serve_check(JAMBA, "float32", JAMBA_SSD[3], 2, 1e-3, False,
+                                      overrides=JAMBA_TRAIN_CUT,
+                                      check_overrides=_drop_free(JAMBA, JAMBA_TRAIN_CUT)),
+    }
+
+
 def phase_zoo_reference_check():
     """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
-    deepseek-moe-16b and whisper-small in fp32 from the same weights on the
+    deepseek-moe-16b, whisper-small and jamba-1.5-large-398b (2 layers: a
+    Mamba layer and an attention layer with 4 experts) in fp32 from the
+    same weights on the
     card (kernels) and on the CPU (plain versions): prefill logits on a
     (2, 64) batch (whisper's over (2, 16, 256) frames) within 1e-4 (abs
     and rel; fp32 summed in other orders, the CPU parity tests'
     tolerance), the serve driver's greedy tokens equal, and for the MoE
     models every layer's expert choices and keep mask equal (at the
-    configs' capacity factor, where this batch drops assignments)."""
+    configs' capacity factor, where this batch drops assignments).  For
+    jamba the absolute part is 1e-4 of the logits' scale, max(1,
+    max|logits|): its Mamba layer's output, as large as the residual
+    stream, reaches the logits (up to ~5) through one more layer, and the
+    SSD scan's fp32 sums carry errors in proportion to their largest terms
+    (``_scaled_close``); mamba2-130m's reduced logits stay below 1.5."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1638,10 +1799,8 @@ def phase_zoo_reference_check():
     from repro_torch.utils.tree import tree_map
 
     out = {}
-    for arch, kernel in (("olmo-1b", "flash_attention"), ("mamba2-130m", "ssd_chunk_scan"),
-                         ("granite-moe-1b-a400m", "flash_attention"),
-                         ("deepseek-moe-16b", "flash_attention"),
-                         ("whisper-small", "flash_attention")):
+    for arch in ("olmo-1b", "mamba2-130m", "granite-moe-1b-a400m", "deepseek-moe-16b",
+                 "whisper-small", JAMBA):
         cfg = get_config(arch).reduced().with_overrides(dtype="float32", param_dtype="float32")
         model = get_model(cfg)
         params = model.init(torch.Generator().manual_seed(3), "cpu")
@@ -1657,11 +1816,12 @@ def phase_zoo_reference_check():
             with recorded_routing() as rec:
                 logits = make_prefill_step(model)(p, tree_map(lambda t: t.to(device), batch))
             toks = generate(model, p, prompt.to(device), 6).tokens
-            runs[device] = (logits.cpu(), toks.cpu(), counts()[kernel],
+            runs[device] = (logits.cpu(), toks.cpu(), counts(),
                             [(i.cpu(), k.cpu()) for i, k in rec.calls])
         (cl, ct, cn, cr), (pl, pt, pn, pr) = runs["cuda"], runs["cpu"]
         err = (cl - pl).abs().max().item()
-        ok = torch.allclose(cl, pl, atol=1e-4, rtol=1e-4)
+        scale = max(1.0, pl.abs().max().item()) if cfg.arch_type == "hybrid" else 1.0
+        ok = torch.allclose(cl, pl, atol=1e-4 * scale, rtol=1e-4)
         same = torch.equal(ct, pt)
         routing = ""
         if cfg.n_experts:
@@ -1673,12 +1833,14 @@ def phase_zoo_reference_check():
             same = same and same_route
             out[arch + " routing_equal"] = same_route
         say(f"[reference] reduced {arch} fp32, card against CPU: max|logits diff| {err:.3e} "
-            f"(tol 1e-4 abs+rel) {'ok' if ok else 'FAIL'}; greedy tokens equal: "
-            f"{torch.equal(ct, pt)}; {kernel} launches card {cn}, cpu {pn}" + routing)
+            f"(tol 1e-4 abs+rel{f', abs times {scale:.3f}' if scale != 1.0 else ''}), "
+            f"relative L2 {rel_l2(cl, pl):.3e} {'ok' if ok else 'FAIL'}; greedy tokens equal: "
+            f"{torch.equal(ct, pt)}; launches card {_nonzero(cn)}, cpu {_nonzero(pn)}" + routing)
         check(ok and same, f"reduced {arch}: card agrees with the CPU")
-        check(cn == _attention_launches(cfg) and pn == 0, f"{arch}: the card run launched the "
-              f"kernel once a layer (an encoder-decoder's decoder layer twice), the CPU run not "
-              f"at all")
+        only = dict.fromkeys(KERNELS, 0)
+        check(cn == only | _launches(cfg) and pn == only, f"{arch}: the card run launched each "
+              f"kernel once an attention or a Mamba layer (an encoder-decoder's decoder layer "
+              f"twice), the CPU run none")
         out[arch] = {"max_logits_diff": err, "tokens_equal": torch.equal(ct, pt)}
     return out
 
@@ -1708,7 +1870,9 @@ def phase_flash_bwd_check():
     fp32 from the same inputs (the forward kernel's output and log-sum-exp,
     the same dO): the main paths' calls, olmo-1b's shape (4, 2048, 16, 128),
     granite-moe-1b-a400m's (4, 2048, 16 query heads over 8 KV heads of
-    64), causal bf16, and whisper-small's three (``WHISPER_ATTN``: the
+    64), jamba-1.5-large-398b's train step (1, 2048, 64 query heads over 8
+    KV heads of 128: the dK / dV kernel sums 8 query heads), causal bf16,
+    and whisper-small's three (``WHISPER_ATTN``: the
     encoder's (8, 1500 x 1500, 12, 64) and the cross-attention's (8, 448
     queries over 1500 keys), full, and the decoder's (8, 448 x 448)
     causal), bf16, each also relaunched and held bit-equal; then GQA (32 query heads on 8, and
@@ -1731,7 +1895,8 @@ def phase_flash_bwd_check():
     gen = torch.Generator(device="cuda").manual_seed(11)
     bf, f32 = torch.bfloat16, torch.float32
     main_cases = [(PREFILL_B, PREFILL_S, 16, 16, 128, True, None, bf),
-                  (PREFILL_B, PREFILL_S, 16, 8, 64, True, None, bf)]
+                  (PREFILL_B, PREFILL_S, 16, 8, 64, True, None, bf),
+                  (1, PREFILL_S, *JAMBA_ATTN, True, None, bf)]
     cases = [*main_cases,
              (2, 1024, 32, 8, 128, True, None, bf),     # GQA 4:1
              (2, 512, 8, 8, 64, True, None, bf),        # D 64
@@ -1756,7 +1921,7 @@ def phase_flash_bwd_check():
     cases = [c[:2] + c[1:] for c in cases]   # Sk = S
     main_cases = [c[:2] + c[1:] for c in main_cases]
     main_cases += [c + (None, bf) for c in WHISPER_ATTN.values()]
-    cases = main_cases + cases[2:] + _two_length_cases(bf) + _two_length_cases(f32)
+    cases = main_cases + cases[3:] + _two_length_cases(bf) + _two_length_cases(f32)
     main_err = 0.0
     for case in cases:
         B, S, Sk, H, KV, D, causal, window, dt = case
@@ -1975,7 +2140,9 @@ def _flash_shape_timing(what: str, B: int, Sq: int, Sk: int, H: int, KV: int, D:
 def phase_flash_shape_timing():
     """Both flash kernels (``_flash_shape_timing``) at granite-moe-1b-a400m's
     attention, q (4, 2048, 16, 64) over k, v (4, 2048, 8, 64), causal (GQA
-    2:1 at head width 64), and at whisper-small's two full-attention shapes
+    2:1 at head width 64), at jamba-1.5-large-398b's, q (B, 2048, 64, 128)
+    over k, v (B, 2048, 8, 128), causal (GQA 8:1), at its prefill's B 4 and
+    its train step's B 1, and at whisper-small's two full-attention shapes
     (``WHISPER_ATTN``): the encoder's (8, 1500 x 1500, 12, 64) and the
     decoder's cross-attention, 448 queries over 1500 keys."""
     import torch
@@ -1983,6 +2150,9 @@ def phase_flash_shape_timing():
     gen = torch.Generator(device="cuda").manual_seed(13)
     out = {"granite-moe-1b-a400m": _flash_shape_timing(
         "granite-moe-1b-a400m", PREFILL_B, PREFILL_S, PREFILL_S, 16, 8, 64, True, gen)}
+    for B, name in ((PREFILL_B, "prefill"), (1, "train")):
+        out[f"{JAMBA} {name}"] = _flash_shape_timing(f"{JAMBA} {name}", B, PREFILL_S, PREFILL_S,
+                                                    *JAMBA_ATTN, True, gen)
     for name in ("encoder", "cross"):
         out[f"whisper-small {name}"] = _flash_shape_timing(f"whisper-small {name}",
                                                            *WHISPER_ATTN[name], gen)
@@ -2266,12 +2436,12 @@ def phase_lora_rounds():
     return {"rounds": rounds_out, "adapter_elems": n_adapter, "total_elems": n_total}
 
 
-def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
+def _train_step_card_vs_cpu(arch: str, per_leaf: bool) -> dict:
     """One reduced fp32 ``make_train_step`` step of ``arch`` on the card
     (kernels) and on the CPU (plain versions) from the same weights and
     batch: the loss within 1e-4, every leaf's gradient within 1e-4
-    relative L2, and ``bwd`` launched once a layer on the card, never on the
-    CPU.  The updated parameters within 1e-4 relative L2, leaf by leaf
+    relative L2, and the forward and backward kernels launched as
+    ``_launches`` says on the card, never on the CPU.  The updated parameters within 1e-4 relative L2, leaf by leaf
     where ``per_leaf``, else as one vector (the worst leaf is printed).
     AdamW's first step moves an element by about lr whatever its
     gradient's size, so an element whose gradient is near AdamW's eps
@@ -2291,7 +2461,7 @@ def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
     model = get_model(cfg)
     params = model.init(torch.Generator().manual_seed(5), "cpu")
     names = [keystr(k) for k, _ in tree_flatten_with_path(params)[0]]
-    seq = 2 * cfg.ssm_chunk if cfg.arch_type == "ssm" else 64
+    seq = 64   # a multiple of the reduced configs' SSD chunk (32)
     rng = np.random.default_rng(1)
     batch = _lm_batch(SyntheticLM(cfg.vocab_size, seq, seed=1), rng, 2)
     if cfg.arch_type == "encdec":
@@ -2307,7 +2477,7 @@ def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
         zero_counts()
         new, _, loss = make_train_step(model, opt)(p, opt.init(p), b)
         runs[device] = ([t.cpu() for t in tree_flatten(new)[0]], [g.cpu() for g in grads],
-                        float(loss), counts()[bwd])
+                        float(loss), counts())
     (cp, cg, cl, cn), (pp, pg, pl, pn) = runs["cuda"], runs["cpu"]
 
     def rel(a, b):
@@ -2323,19 +2493,21 @@ def _train_step_card_vs_cpu(arch: str, bwd: str, per_leaf: bool) -> dict:
         f"loss {cl:.6f} / {pl:.6f}, worst leaf gradient relative L2 {worst_grad:.3e} (tol 1e-4); "
         f"updated parameters relative L2: whole model {whole:.3e}, worst leaf {leaf_rel[worst_i]:.3e} "
         f"({names[worst_i]}) (tol 1e-4 {'per leaf' if per_leaf else 'for the whole model'}); "
-        f"{bwd} launches card {cn}, cpu {pn} {'ok' if ok else 'FAIL'}")
-    check(ok and cn == _attention_launches(cfg) and pn == 0,
+        f"launches card {_nonzero(cn)}, cpu {_nonzero(pn)} {'ok' if ok else 'FAIL'}")
+    only = dict.fromkeys(KERNELS, 0)
+    check(ok and cn == only | _launches(cfg) | _launches(cfg, True) and pn == only,
           f"reduced {arch} train step: card agrees with the CPU")
     return {"loss": (cl, pl), "worst_rel_l2": max(leaf_rel), "worst_leaf": names[worst_i],
-            "whole_rel_l2": whole, "worst_grad_rel_l2": worst_grad, "bwd_launches": cn}
+            "whole_rel_l2": whole, "worst_grad_rel_l2": worst_grad, "launches": _nonzero(cn)}
 
 
 def phase_train_reference_check():
     """Reduced olmo-1b, mamba2-130m, granite-moe-1b-a400m,
-    deepseek-moe-16b and whisper-small in fp32 on the card (kernels) and on
-    the CPU (plain versions) from the same weights: one train step each
-    (``_train_step_card_vs_cpu``; updated parameters held leaf by leaf,
-    but mamba2-130m's, which start with zero biases, as one vector), and
+    deepseek-moe-16b, whisper-small and jamba-1.5-large-398b in fp32 on the
+    card (kernels) and on the CPU (plain versions) from the same weights:
+    one train step each (``_train_step_card_vs_cpu``; updated parameters
+    held leaf by leaf, but mamba2-130m's and jamba's, which start with zero
+    biases (and jamba's AdamW keeps bf16 moments), as one vector), and
     one federated LoRA round of olmo-1b
     (``with_lora(2)``, 2 silos, uncompressed, fold cost fixed so the
     trace's times are arithmetic): adapters within 1e-4, base leaves
@@ -2350,15 +2522,16 @@ def phase_train_reference_check():
     from repro_torch.models.fl_models import lora_adapter_schema
     from repro_torch.utils.tree import keystr, tree_flatten_with_path
 
-    olmo = _train_step_card_vs_cpu("olmo-1b", "flash_attention_bwd", per_leaf=True)
-    mamba = _train_step_card_vs_cpu("mamba2-130m", "ssd_intra_chunk_bwd", per_leaf=False)
-    moe = {arch: _train_step_card_vs_cpu(arch, "flash_attention_bwd", per_leaf=True)
+    olmo = _train_step_card_vs_cpu("olmo-1b", per_leaf=True)
+    mamba = _train_step_card_vs_cpu("mamba2-130m", per_leaf=False)
+    moe = {arch: _train_step_card_vs_cpu(arch, per_leaf=True)
            for arch in ("granite-moe-1b-a400m", "deepseek-moe-16b")}
-    whisper = _train_step_card_vs_cpu("whisper-small", "flash_attention_bwd", per_leaf=True)
+    whisper = _train_step_card_vs_cpu("whisper-small", per_leaf=True)
+    jamba = _train_step_card_vs_cpu(JAMBA, per_leaf=False)
     cfg = get_config("olmo-1b").reduced().with_overrides(dtype="float32", param_dtype="float32")
     lcfg = cfg.with_lora(2)
     out = {"train_loss": olmo["loss"], "train_worst_rel_l2": olmo["worst_rel_l2"],
-           "ssm_train": mamba, "moe_train": moe, "encdec_train": whisper}
+           "ssm_train": mamba, "moe_train": moe, "encdec_train": whisper, "hybrid_train": jamba}
     results = {}
     for device in ("cuda", "cpu"):
         silos = make_lm_silos(2, lcfg.vocab_size, 32, [(4, 2), (4, 2)], seed=2)
@@ -2416,16 +2589,20 @@ def phase_ssd_bwd_check():
     maxima, chunks of 96, 100, 150 and 160 positions (not multiples of the
     kernel's 64-position tiles), H of 5 and 7 (not multiples of its group
     of 3 heads: clusters of 2 and 3 groups, the last one short), and N of
-    36 (not a multiple of 16).  fp32: within 2e-5 of each
+    36 (not a multiple of 16); jamba-1.5-large-398b's train step (1, 2048,
+    256 heads) in bf16, where 86 groups of 3 heads, the last holding one,
+    fill 11 clusters of 8 and leave 2 blocks of the last cluster with no
+    head, and in fp32; and H of 13 and 28 (a 1-head group and empty
+    cluster blocks at a small size).  fp32: within 2e-5 of each
     gradient's max(1, max|plain|); bf16 (dx, dB and dC come back in bf16):
-    relative L2 <= 1e-2 per gradient.  At mamba2-130m's shape a second
-    launch must be bit-equal.  Then the whole scan's gradient through the
+    relative L2 <= 1e-2 per gradient.  At mamba2-130m's and jamba's shapes
+    a second launch must be bit-equal.  Then the whole scan's gradient through the
     Function with an initial state (a continuation), on the card against
     autograd through the plain ``ssd_chunked`` on the card (2e-5 of
     scale).  Last, inputs the kernels do not take (P 68, N 132, fp16, B of
     another dtype than x, an odd chunk) must be refused before any launch.
     Returns the largest |kernel - plain| over the five gradients at
-    mamba2-130m's shape in bf16."""
+    mamba2-130m's and jamba's shapes in bf16."""
     import torch
     from repro_torch.kernels.ssd_scan import (
         _launch, ssd_chunk_scan, ssd_chunk_scan_plain, ssd_intra_chunk_bwd,
@@ -2434,13 +2611,16 @@ def phase_ssd_bwd_check():
     gen = torch.Generator(device="cuda").manual_seed(13)
     bf, f32 = torch.bfloat16, torch.float32
     full = (SSM_B, PREFILL_S, 24, 64, 128, 256)
-    cases = [(full, bf), (full, f32),
+    jamba = (1, PREFILL_S, *JAMBA_SSD)
+    mains = [(full, bf), (jamba, bf), (jamba, f32)]
+    cases = [(full, bf), (full, f32), (jamba, bf), (jamba, f32),
+             ((1, 128, 13, 32, 64, 64), bf), ((1, 128, 28, 16, 16, 64), bf),
              ((2, 256, 8, 32, 64, 64), f32), ((2, 256, 8, 32, 64, 64), bf),
              ((1, 192, 6, 64, 128, 96), bf), ((1, 200, 4, 32, 16, 100), f32),
              ((2, 300, 5, 16, 36, 150), bf), ((2, 300, 5, 16, 36, 150), f32),
              ((1, 320, 7, 32, 64, 160), f32), ((1, 320, 7, 32, 64, 160), bf)]
     names = ("dx", "ddt", "dA", "dB", "dC")
-    main_err = None
+    main_err = 0.0
     for (B, L, H, P, N, Q), dt in cases:
         args = _ssd_inputs(B, L, H, P, N, dt, gen)
         a_cs = _launch(*args, Q)[2]
@@ -2462,12 +2642,14 @@ def phase_ssd_bwd_check():
             + ", ".join(f"{n} {x:.3e}" for n, x in zip(names, scores))
             + f" (tol {tol:g}) {'ok' if ok else 'FAIL'}")
         check(ok, f"ssd_intra_chunk_bwd {(B, L, H, P, N, Q, dt)}")
-        if ((B, L, H, P, N, Q), dt) == (full, bf):
-            main_err = max(errs)
+        if ((B, L, H, P, N, Q), dt) in mains:
+            if dt == bf:
+                main_err = max(main_err, *errs)
             again = ssd_intra_chunk_bwd(*args, a_cs, *cots)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            say(f"[check] ssd_intra_chunk_bwd at mamba2-130m's shape, a second launch on the "
-                f"same inputs: bit-equal {same} (one writer per output, no atomics)")
+            say(f"[check] ssd_intra_chunk_bwd at {(B, L, H, P, N, Q)} {str(dt)[6:]}, a second "
+                f"launch on the same inputs: bit-equal {same} (one writer per output, no "
+                f"atomics)")
             check(same, "ssd_intra_chunk_bwd is deterministic")
             del again
         del args, a_cs, cots, got, want
@@ -2554,14 +2736,15 @@ def phase_ssd_bwd_timing():
     pass each, and G) at 67 TFLOP/s are printed beside it.  The bytes are
     x, B, C (bf16), dt, a_cs and the three cotangents read once, and dx,
     dB, dC (bf16), ddt and dA written once.  No single PyTorch call
-    computes it."""
+    computes it.  Last, the backward, its plain version and the forward
+    kernel at jamba-1.5-large-398b's train step (1, 2048, 256 heads), with
+    the same bounds."""
     import torch
     from repro_torch.kernels.ssd_scan import (
         _bwd_kernel_fn, _launch, ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     B, L, H, P, N, Q = SSM_B, PREFILL_S, 24, 64, 128, 256
-    C = L // Q
     args = _ssd_inputs(B, L, H, P, N, torch.bfloat16, gen)
     a_cs = _launch(*args, Q)[2]
     cots = _ssd_cotangents(B, L, H, P, N, Q, gen)
@@ -2576,11 +2759,7 @@ def phase_ssd_bwd_timing():
                          "plain": lambda: ssd_intra_chunk_bwd_plain(*args, a_cs, *cots),
                          "forward": forward, "kernel_span": kernel, "forward_span": forward},
                         queued=("kernel_span", "forward_span"))
-    mm, pairs = Q * (Q + 1), 2 * Q * N * P
-    flops = B * C * H * (5 * mm * P + 4 * pairs) + B * C * 4 * mm * N
-    fp32_flops = B * C * H * (2 * mm * P + 2 * pairs) + B * C * 3 * mm * N
-    nbytes = (2 * B * L * H * P * 2 + 4 * B * L * N * 2 + 2 * B * L * H * 4 + H * 4
-              + B * C * H * (2 * Q + Q * P + P * N) * 4)
+    flops, fp32_flops, nbytes = _ssd_bwd_work(B, L, H, P, N, Q)
     row = _bound_row(q4, n, flops, TF32_FLOPS_PER_S, nbytes,
                      "ssd_intra_chunk_bwd mamba2-130m train step (4, 2048, 24, 64), N 128, "
                      "chunk 256, bf16, 3xTF32 tensor-core passes", None)
@@ -2626,24 +2805,64 @@ def phase_ssd_bwd_timing():
     say(f"[time] ssd_intra_chunk_bwd scratch a call: {row['scratch_bytes'] / 1e6:.1f} MB "
         f"(the earlier fp32-FMA kernel's layout: 159 MB)")
     del args, a_cs, cots
+
+    # jamba-1.5-large-398b's train step: 256 heads, the backward beside the
+    # forward kernel and its plain version in the same rounds.
+    B, L, H, P, N, Q = 1, PREFILL_S, *JAMBA_SSD
+    args = _ssd_inputs(B, L, H, P, N, torch.bfloat16, gen)
+    a_cs = _launch(*args, Q)[2]
+    cots = _ssd_cotangents(B, L, H, P, N, Q, gen)
+    q4, n = alternating({"kernel": lambda: ssd_intra_chunk_bwd(*args, a_cs, *cots),
+                         "plain": lambda: ssd_intra_chunk_bwd_plain(*args, a_cs, *cots),
+                         "forward": lambda: _launch(*args, Q)})
+    flops, fp32_flops, nbytes = _ssd_bwd_work(B, L, H, P, N, Q)
+    jamba = _bound_row(q4, n, flops, TF32_FLOPS_PER_S, nbytes,
+                       f"ssd_intra_chunk_bwd {JAMBA} train step ({B}, {L}, {H}, {P}), N {N}, "
+                       f"chunk {Q}, bf16, 3xTF32 tensor-core passes", None)
+    jamba["fp32_bound_ms"] = fp32_flops / FP32_FLOPS_PER_S * 1e3
+    jamba["forward_ms"] = q4["forward"][1]
+    say(f"[time] ssd_intra_chunk_bwd at {JAMBA}'s shape: {jamba['ms'] / q4['forward'][1]:.2f}x "
+        f"the forward kernel ({q4['forward'][1]:.4f} ms) in the same rounds; fp32-FMA bound "
+        f"{jamba['fp32_bound_ms']:.4f} ms")
+    row["jamba"] = jamba
+    del args, a_cs, cots
     torch.cuda.empty_cache()
     return row
 
 
-def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: list,
-                     seq: int = PREFILL_S) -> dict:
-    """``arch`` at full width and depth in bf16, random weights from seed 0,
-    through ``make_train_step`` with ``make_optimizer_for`` (AdamW, fp32
-    state) on (batch, seq) batches of ``SyntheticLM`` tokens (an
+def _ssd_bwd_work(B: int, L: int, H: int, P: int, N: int, Q: int) -> tuple:
+    """The SSD backward's needed work (``phase_ssd_bwd_timing``): its 3xTF32
+    tensor-core passes and the same products as fp32 FMAs, in flops, and
+    the bytes read and written once."""
+    C = L // Q
+    mm, pairs = Q * (Q + 1), 2 * Q * N * P
+    flops = B * C * H * (5 * mm * P + 4 * pairs) + B * C * 4 * mm * N
+    fp32_flops = B * C * H * (2 * mm * P + 2 * pairs) + B * C * 3 * mm * N
+    nbytes = (2 * B * L * H * P * 2 + 4 * B * L * N * 2 + 2 * B * L * H * 4 + H * 4
+              + B * C * H * (2 * Q + Q * P + P * N) * 4)
+    return flops, fp32_flops, nbytes
+
+
+def _zoo_train_phase(arch: str, batch: int, trainer_args: "list | None",
+                     seq: int = PREFILL_S, overrides: "dict | None" = None) -> dict:
+    """``arch`` at full width and depth in bf16 (``overrides`` applied to its
+    config, e.g. a memory cut), random weights from seed 0, through
+    ``make_train_step`` with ``make_optimizer_for`` (AdamW, the config's
+    state dtype) on (batch, seq) batches of ``SyntheticLM`` tokens (an
     encoder-decoder's with (batch, 1500, d) frames drawn after them): one
     warm-up step, TRAIN_STEPS timed ones (host clock ending in a
-    synchronize), each with one ``fwd`` and one ``bwd`` launch an attention
-    (``_attention_launches``) and nothing else, losses finite; one more step
-    under ``torch.profiler``.  First the gradients of
-    two differentiations of the loss from the same weights and batch must
-    be bit-equal (no atomic accumulation on the path).  Then the trainer as a user runs it, in
-    its own process: ``python -m repro_torch.launch.train --arch <arch>``
-    with ``trainer_args`` must exit 0 (the loss fell)."""
+    synchronize), each with the forward and backward launches of
+    ``_launches`` and nothing else, losses finite; one more step under
+    ``torch.profiler``.  First the gradients of two differentiations of the
+    loss from the same weights and batch must be bit-equal (no atomic
+    accumulation on the path).  Then the trainer as a user runs it, in its
+    own process: ``python -m repro_torch.launch.train --arch <arch>`` with
+    ``trainer_args`` must exit 0 (the loss fell).  With ``trainer_args``
+    None no trainer runs (its CLI has no flag for a cut), and the phase's
+    own loss must fall instead: the warm-up batch's loss after the phase's
+    steps below the warm-up step's.  (Each ``SyntheticLM`` batch of 2048
+    tokens walks its own few thousand states of a 4-way Markov chain, so
+    six steps barely move the loss of a batch no step took.)"""
     import os
 
     import numpy as np
@@ -2654,11 +2873,10 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
     from repro_torch.models import get_model
     from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).with_overrides(**(overrides or {}))
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
     opt = make_optimizer_for(cfg)
-    state = opt.init(params)
     step = make_train_step(model, opt)
     ds = SyntheticLM(cfg.vocab_size, seq, seed=0)
     rng = np.random.default_rng(0)
@@ -2667,9 +2885,8 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
         batches.append(_lm_batch(ds, rng, batch))
         if cfg.arch_type == "encdec":
             batches[-1]["frames"] = _frames(rng, batch, cfg)
-    tag = f"[train] {arch} bf16"
-    L = _attention_launches(cfg)
-    only = dict.fromkeys(KERNELS, 0) | {fwd: L, bwd: L}
+    tag = f"[train] {arch} bf16" + (f" ({overrides})" if overrides else "")
+    only = dict.fromkeys(KERNELS, 0) | _launches(cfg) | _launches(cfg, True)
     leaves, treedef = tree_flatten(params)
     grads = []
     for _ in range(2):
@@ -2682,12 +2899,14 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
         f"losses {float(l1):.6f} / {float(l2):.6f} bit-equal {torch.equal(l1, l2)}; "
         f"{sum(same)} of {len(same)} leaves' gradients bit-equal")
     check(torch.equal(l1, l2) and all(same), f"{arch}: repeated gradients bit-equal")
-    out = {"repeat_grads_bit_equal": all(same)}
+    out = {"repeat_grads_bit_equal": all(same), "params": model.param_count(params)}
     del grads, g1, g2, live, loss, leaves
+    state = opt.init(params)
     zero_counts()
     params, state, loss = step(params, state, batches[0])   # warm-up
     torch.cuda.synchronize()
-    check(counts() == only and math.isfinite(float(loss)), f"warm-up step launches {counts()}")
+    first = float(loss)
+    check(counts() == only and math.isfinite(first), f"warm-up step launches {counts()}")
     torch.cuda.reset_peak_memory_stats()
     times, losses, all_launches = [], [], []
     for b in batches[1:TRAIN_STEPS + 1]:
@@ -2707,8 +2926,7 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     check(all(math.isfinite(x) for x in losses), f"{arch} train step losses finite")
     check(all(n == only for n in all_launches),
-          f"a {arch} train step launches {L} {fwd} forwards and {L} backwards, got "
-          f"{all_launches}")
+          f"a {arch} train step launches {_nonzero(only)}, got {all_launches}")
     zero_counts()
     holder = {}
 
@@ -2717,8 +2935,21 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
 
     trace = _trace_prefill(traced, tag, "train step")
     check(counts() == only, f"traced {arch} train step launches")
-    del params, state, holder, batches
+    del holder
+    out.update(step_s=med, step_s_quartiles=(q1, med, q3), step_s_runs=times,
+               losses=[first] + losses, launches=all_launches[-1], peak_bytes=peak, trace=trace)
+    if trainer_args is None:
+        with torch.no_grad():
+            again, unseen = (float(model.loss(params, b)) for b in (batches[0], batches[-1]))
+        say(f"{tag}: the warm-up batch's loss {first:.4f} before the phase's {TRAIN_STEPS + 1} "
+            f"steps, {again:.4f} after (a batch no step took: {unseen:.4f}); no trainer "
+            f"process (its CLI takes no cut)")
+        check(math.isfinite(again) and again < first, f"{arch}: the loss falls over the phase")
+        out.update(loss_after=again, unseen_batch_loss=unseen)
+    del params, state, batches
     torch.cuda.empty_cache()
+    if trainer_args is None:
+        return out
 
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch] + trainer_args
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -2728,15 +2959,13 @@ def _zoo_train_phase(arch: str, batch: int, fwd: str, bwd: str, trainer_args: li
     for line in (proc.stdout + proc.stderr).splitlines():
         say(f"[trainer] {line}")
     m = re.search(r"done: loss ([0-9.naif]+) -> ([0-9.naif]+)", proc.stdout)
-    first, last = (float(m.group(1)), float(m.group(2))) if m else (None, None)
+    t_first, last = (float(m.group(1)), float(m.group(2))) if m else (None, None)
     say(f"[trainer] python -m repro_torch.launch.train --arch {arch} {' '.join(trainer_args)}: "
-        f"exit code {proc.returncode} in {wall:.1f} s; first loss {first}, last {last}")
+        f"exit code {proc.returncode} in {wall:.1f} s; first loss {t_first}, last {last}")
     check(proc.returncode == 0 and "device=cuda" in proc.stdout,
           f"the {arch} trainer exits 0 on the card (the loss fell)")
-    out.update(step_s=med, step_s_quartiles=(q1, med, q3), step_s_runs=times,
-               losses=losses, launches=all_launches[-1], peak_bytes=peak, trace=trace,
-               trainer={"rc": proc.returncode, "first_loss": first, "last_loss": last,
-                        "wall_s": wall})
+    out["trainer"] = {"rc": proc.returncode, "first_loss": t_first, "last_loss": last,
+                      "wall_s": wall}
     return out
 
 
@@ -2744,7 +2973,7 @@ def phase_ssm_train_step():
     """mamba2-130m on (4, 2048) batches, 24 ``ssd_chunk_scan`` forward and
     24 backward launches a step (``_zoo_train_phase``); its trainer with
     ``--steps 8 --batch 4 --seq 2048``."""
-    return _zoo_train_phase("mamba2-130m", SSM_B, "ssd_chunk_scan", "ssd_intra_chunk_bwd",
+    return _zoo_train_phase("mamba2-130m", SSM_B,
                             ["--steps", "8", "--batch", str(SSM_B), "--seq", str(PREFILL_S)])
 
 
@@ -2753,8 +2982,7 @@ def phase_moe_train_step():
     forward and 24 backward launches a step (``_zoo_train_phase``); the
     reference's trainer command ``--arch granite-moe-1b-a400m`` with its
     defaults (50 steps of (8, 128))."""
-    return _zoo_train_phase("granite-moe-1b-a400m", TRAIN_B, "flash_attention",
-                            "flash_attention_bwd", [])
+    return _zoo_train_phase("granite-moe-1b-a400m", TRAIN_B, [])
 
 
 def phase_encdec_train_step():
@@ -2763,8 +2991,17 @@ def phase_encdec_train_step():
     encoder, 12 decoder self, 12 cross; ``_zoo_train_phase``); the
     reference's trainer command ``--arch whisper-small`` with its defaults
     (50 steps of (8, 128) tokens, each over (8, 1500) frames)."""
-    return _zoo_train_phase("whisper-small", WHISPER_B, "flash_attention",
-                            "flash_attention_bwd", [], seq=WHISPER_S)
+    return _zoo_train_phase("whisper-small", WHISPER_B, [], seq=WHISPER_S)
+
+
+def phase_hybrid_train_step():
+    """jamba-1.5-large-398b at the training cut (``JAMBA_TRAIN_CUT``) on (1,
+    2048) batches with the config's bf16 AdamW moments: 1 flash and 7 SSD
+    scan forward launches and as many backward launches a step
+    (``_zoo_train_phase``).  No trainer process: the trainer's CLI, like the
+    reference's, takes no override, and the whole config does not fit one
+    card; the phase's own loss must fall instead."""
+    return _zoo_train_phase(JAMBA, 1, None, overrides=JAMBA_TRAIN_CUT)
 
 
 def _zoo_fedavg_phase(arch: str, fwd: str, bwd: str) -> dict:
@@ -2945,6 +3182,7 @@ def main() -> int:
     zoo = timed(phase_zoo_paths)
     moe_zoo = timed(phase_moe_paths)
     encdec_zoo = timed(phase_encdec_paths)
+    hybrid_zoo = timed(phase_hybrid_paths)
     zoo_reference = timed(phase_zoo_reference_check)
     train_step = timed(phase_train_step)
     trainer = timed(phase_trainer_entry)
@@ -2954,6 +3192,7 @@ def main() -> int:
     moe_train = timed(phase_moe_train_step)
     moe_fedavg = timed(phase_moe_fedavg_rounds)
     encdec_train = timed(phase_encdec_train_step)
+    hybrid_train = timed(phase_hybrid_train_step)
     train_reference = timed(phase_train_reference_check)
 
     dq = dq_timing["int8"]
@@ -2989,9 +3228,12 @@ def main() -> int:
              sum(zoo_run["prefill_launches"]["flash_attention"]
                  for zoo_run in (zoo["olmo-1b bf16"], moe_zoo["granite-moe-1b-a400m bf16"],
                                  moe_zoo["deepseek-moe-16b bf16"],
-                                 encdec_zoo["whisper-small bf16"])), flash_err),
+                                 encdec_zoo["whisper-small bf16"],
+                                 hybrid_zoo[f"{JAMBA} bf16"])), flash_err),
             ("ssd_chunk_scan", "ssd_scan.cu", "ssd_scan.py:27",
-             zoo["mamba2-130m bf16"]["prefill_launches"]["ssd_chunk_scan"], ssd_err)):
+             sum(zoo_run["prefill_launches"]["ssd_chunk_scan"]
+                 for zoo_run in (zoo["mamba2-130m bf16"], hybrid_zoo[f"{JAMBA} bf16"])),
+             ssd_err)):
         row = zoo_timing[name]
         kernels.append({
             "name": name,
@@ -3013,7 +3255,8 @@ def main() -> int:
         "replaces": "src/repro/models/layers.py:97",
         "launches": (train_step["launches"]["flash_attention_bwd"]
                      + moe_train["launches"]["flash_attention_bwd"]
-                     + encdec_train["launches"]["flash_attention_bwd"]),
+                     + encdec_train["launches"]["flash_attention_bwd"]
+                     + hybrid_train["launches"]["flash_attention_bwd"]),
         "max_abs_err": bwd_err,
         "ms": bwd_timing["ms"],
         "plain_ms": bwd_timing["plain_ms"],
@@ -3026,7 +3269,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/models/mamba2.py:63",
-        "launches": ssm_train["launches"]["ssd_intra_chunk_bwd"],
+        "launches": (ssm_train["launches"]["ssd_intra_chunk_bwd"]
+                     + hybrid_train["launches"]["ssd_intra_chunk_bwd"]),
         "max_abs_err": ssd_bwd_err,
         "ms": ssd_bwd_timing["ms"],
         "plain_ms": ssd_bwd_timing["plain_ms"],
@@ -3045,6 +3289,7 @@ def main() -> int:
         "flash_shape_timing": shape_timing, "moe_zoo": moe_zoo, "moe_train": moe_train,
         "moe_fedavg": moe_fedavg,
         "encdec_zoo": encdec_zoo, "encdec_train": encdec_train,
+        "hybrid_zoo": hybrid_zoo, "hybrid_train": hybrid_train,
         "train_step": train_step, "trainer": trainer, "lora": lora,
         "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
         "train_reference": train_reference, "phase_s": PHASE_S,

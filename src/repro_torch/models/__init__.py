@@ -1,6 +1,6 @@
 """Models: the paper's FL application models (``fl_models``), the model
-zoo behind one ``ModelFamily`` API (``api``; the dense, MoE, VLM and
-SSM families so far), and the federated-LoRA adapter helpers."""
+zoo behind one ``ModelFamily`` API (``api``: the dense, MoE, VLM, SSM,
+hybrid and encoder-decoder families), and the federated-LoRA adapter helpers."""
 from .api import ModelFamily, get_model
 from .fl_models import (
     LoRAConfig,

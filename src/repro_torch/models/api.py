@@ -1,15 +1,14 @@
 """Unified model API, the port of ``repro/models/api.py``: one dispatch
 point over the architecture families.
 
-Ported: ``dense``, ``moe``, ``vlm``, ``ssm`` and ``encdec`` (init, loss,
-prefill, cache, decode, parameter counts).  ``loss`` is differentiable;
-on a card the ``dense``, ``moe``, ``vlm`` and ``encdec`` families train
-through the attention kernels' backward and ``ssm`` through the SSD
-scan's.  ``hybrid`` raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+Every family of the zoo is ported: ``dense``, ``moe``, ``vlm``, ``ssm``,
+``hybrid`` and ``encdec`` (init, loss, prefill, cache, decode, parameter
+counts).  ``loss`` is differentiable; on a card the ``dense``, ``moe``,
+``vlm`` and ``encdec`` families train through the attention kernels'
+backward, ``ssm`` through the SSD scan's and ``hybrid`` through both.
 
 Per-family inputs (all batched):
-  prefill/loss : dense/moe/ssm -> {tokens, labels}
+  prefill/loss : dense/moe/ssm/hybrid -> {tokens, labels}
                  vlm       -> {tokens, labels, patch_embeds}
                  encdec    -> {frames, tokens, labels}
   decode       : token (B, 1), pos, and the family's cache
@@ -25,15 +24,13 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..utils.tree import tree_leaves
 from . import encdec as E
+from . import hybrid as Hy
 from . import ssm_lm as S
 from . import transformer as T
 
 Params = Dict[str, Any]
 
-PORTED = ("dense", "moe", "vlm", "ssm", "encdec")
-_TODO = {
-    "hybrid": "the hybrid family: ROADMAP.md queue 1, item 15 (hybrid.py)",
-}
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +39,6 @@ class ModelFamily:
 
     def _family(self) -> str:
         a = self.cfg.arch_type
-        if a in _TODO:
-            raise NotImplementedError(_TODO[a])
         if a not in PORTED:
             raise ValueError(f"unknown arch_type {a!r}")
         return a
@@ -53,6 +48,8 @@ class ModelFamily:
         a = self._family()
         if a == "ssm":
             return S.init_ssm_lm(gen, self.cfg, device)
+        if a == "hybrid":
+            return Hy.init_hybrid_lm(gen, self.cfg, device)
         if a == "encdec":
             return E.init_encdec(gen, self.cfg, device)
         return T.init_lm(gen, self.cfg, device)
@@ -67,6 +64,9 @@ class ModelFamily:
                              prefix_embeds=batch["patch_embeds"])
         if a == "encdec":
             return E.encdec_loss(params, batch["frames"], batch["tokens"], batch["labels"], cfg)
+        if a == "hybrid":
+            logits, aux = Hy.hybrid_forward(params, batch["tokens"], cfg)
+            return _nll(logits, batch["labels"]) + cfg.router_aux_coef * aux
         logits, _ = S.ssm_forward(params, batch["tokens"], cfg)
         return _nll(logits, batch["labels"])
 
@@ -81,6 +81,8 @@ class ModelFamily:
         if a == "encdec":
             memory = E.encode(params, batch["frames"], cfg)
             return E.decode_forward(params, batch["tokens"], memory, cfg)
+        if a == "hybrid":
+            return Hy.hybrid_forward(params, batch["tokens"], cfg)[0]
         return S.ssm_forward(params, batch["tokens"], cfg)[0]
 
     # -- decode ----------------------------------------------------------------
@@ -88,6 +90,8 @@ class ModelFamily:
         a = self._family()
         if a == "ssm":
             return S.init_ssm_cache(self.cfg, batch, device)
+        if a == "hybrid":
+            return Hy.init_hybrid_cache(self.cfg, batch, max_seq, device)
         if a == "encdec":
             return E.init_encdec_cache(self.cfg, batch, max_seq, device)
         return T.init_kv_cache(self.cfg, batch, max_seq, device)
@@ -98,6 +102,9 @@ class ModelFamily:
         a = self._family()
         if a == "ssm":
             return S.ssm_decode_step(params, token, cache, self.cfg)
+        if a == "hybrid":
+            return Hy.hybrid_decode_step(params, token, cache, pos, self.cfg,
+                                         sliding_window=sliding_window)
         if a == "encdec":
             return E.encdec_decode_step(params, token, cache, pos, self.cfg)
         return T.lm_decode_step(params, token, cache, pos, self.cfg,

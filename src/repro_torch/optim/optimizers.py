@@ -28,6 +28,7 @@ from ..utils.tree import keystr, tree_flatten, tree_flatten_with_path, tree_map,
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
+_UPDATE_SLICE = 1 << 24   # elements of a leaf AdamW updates at once
 
 
 def _state_dtype(name: str) -> torch.dtype:
@@ -74,13 +75,24 @@ class AdamW:
         )
         new_p, new_m, new_v = [], [], []
         for g, m, v, p in zip(g_leaves, m_leaves, v_leaves, p_leaves):
-            gf = g.float()
-            mf = b1 * m.float() + (1 - b1) * gf
-            vf = b2 * v.float() + (1 - b2) * gf * gf
-            delta = (mf / c1) / (torch.sqrt(vf / c2) + self.eps) + self.weight_decay * p.float()
-            new_p.append((p.float() - lr * delta).to(p.dtype))
-            new_m.append(mf.to(dt))
-            new_v.append(vf.to(dt))
+            p_new = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+            m_new, v_new = (torch.empty(p.shape, dtype=dt, device=p.device) for _ in range(2))
+            g1, m1, v1, p1 = (t.reshape(-1) for t in (g, m, v, p))
+            # The elementwise rule a slice at a time, so that its fp32
+            # temporaries (about 30 bytes an element) stay small beside the
+            # largest leaf; every element's arithmetic is the same.
+            for lo in range(0, p.numel(), _UPDATE_SLICE):
+                s = slice(lo, lo + _UPDATE_SLICE)
+                gf = g1[s].float()
+                mf = b1 * m1[s].float() + (1 - b1) * gf
+                vf = b2 * v1[s].float() + (1 - b2) * gf * gf
+                delta = (mf / c1) / (torch.sqrt(vf / c2) + self.eps) + self.weight_decay * p1[s].float()
+                p_new.view(-1)[s] = (p1[s].float() - lr * delta).to(p.dtype)
+                m_new.view(-1)[s] = mf.to(dt)
+                v_new.view(-1)[s] = vf.to(dt)
+            new_p.append(p_new)
+            new_m.append(m_new)
+            new_v.append(v_new)
         return tree_unflatten(treedef, new_p), AdamWState(
             step=step, m=tree_unflatten(treedef, new_m), v=tree_unflatten(treedef, new_v)
         )

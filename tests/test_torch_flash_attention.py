@@ -525,6 +525,33 @@ def test_bwd_kernel_matches_plain_on_card(case, dtype):
             assert (got - w).abs().max().item() <= 2e-5 * max(1.0, w.abs().max().item())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernel_jamba_heads_on_card(dtype):
+    """Card only: jamba-1.5-large-398b's attention heads, 64 query heads
+    over 8 KV heads of 128 (GQA 8:1: the dK / dV kernel sums 8 query heads
+    of each KV head across every query tile), at S 512: the gradients
+    against the plain version as in ``test_bwd_kernel_matches_plain_on_card``,
+    and a second launch bit-equal."""
+    _card()
+    B, S, H, KV, D = 1, 512, 64, 8, 128
+    q, k, v = _torch(_qkv(B, S, H, KV, D, seed=7), dtype, "cuda")
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(8),
+                       device="cuda").to(q.dtype)
+    lse = attention_lse_plain(q.float(), k.float(), True, None)
+    o = flash_attention(q, k, v, causal=True)
+    first = flash_attention_bwd(q, k, v, o, lse, dout)
+    second = flash_attention_bwd(q, k, v, o, lse, dout)
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     dout.float(), True, None)
+    for got, again, w in zip(first, second, want):
+        assert got.dtype == q.dtype and got.shape == w.shape and torch.equal(got, again)
+        if dtype == "bfloat16":
+            assert _rel_l2(got, w) <= 1e-2
+        else:
+            assert (got - w).abs().max().item() <= 2e-5 * max(1.0, w.abs().max().item())
+
+
 def _lse_err(got, want):
     """max |got - want| where rows with no key (+inf in both) count as 0."""
     return torch.where(got == want, 0.0, (got - want).abs()).max().item()

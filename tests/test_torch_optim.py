@@ -98,3 +98,26 @@ def test_make_optimizer():
     assert AdamW().b2 == 0.95 and AdamW().weight_decay == 0.1
     with pytest.raises(ValueError):
         make_optimizer("lion", 1e-3)
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_update_by_slices_is_bit_equal_to_whole_leaves(state_dtype, monkeypatch):
+    """AdamW updates a leaf a slice at a time; slices of 333 elements
+    (leaves of 37,000, 5 and a transposed 4 x 3) give the same bits as
+    slices larger than every leaf."""
+    from repro_torch.optim import optimizers
+
+    g = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(1000, 37, generator=g).bfloat16(), "b": torch.randn(5, generator=g),
+              "c": torch.randn(3, 4, generator=g).t()}
+    grads = {k: torch.randn(v.shape, generator=g).to(v.dtype) for k, v in params.items()}
+    opt = AdamW(state_dtype=state_dtype)
+    state = opt.init(params)
+    state = state._replace(
+        m={k: torch.randn(v.shape, generator=g).to(v.dtype) for k, v in state.m.items()},
+        v={k: torch.rand(v.shape, generator=g).to(v.dtype) for k, v in state.v.items()})
+    whole = opt.update(grads, state, params)
+    monkeypatch.setattr(optimizers, "_UPDATE_SLICE", 333)
+    sliced = opt.update(grads, state, params)
+    for a, b in zip(*(tree_leaves([p, st.m, st.v]) for p, st in (whole, sliced))):
+        assert a.shape == b.shape and torch.equal(a, b)

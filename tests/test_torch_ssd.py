@@ -600,6 +600,25 @@ def test_bwd_kernel_deterministic_on_card(B, L, H, P, N, chunk, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("H", [13, 28])
+def test_bwd_kernel_ragged_group_and_empty_cluster_blocks_on_card(H):
+    """Card only: bf16 B and C, where the backward's blocks take 3 heads
+    each and a cluster sums its blocks' partials.  13 heads make 5 groups in
+    3 clusters of 2 and 28 make 10 in 4 clusters of 3: the last group holds
+    one head, and the last cluster has a block with no head (as jamba's 256
+    heads leave 2 of 88).  The gradients against the plain version (relative
+    L2 <= 1e-2 each), and a second launch bit-equal."""
+    _card()
+    args, a_cs, cots = _bwd_case(1, 128, H, 32, 64, 64, torch.bfloat16, seed=H)
+    first = ssd_intra_chunk_bwd(*args, a_cs, *cots)
+    second = ssd_intra_chunk_bwd(*args, a_cs, *cots)
+    want = ssd_intra_chunk_bwd_plain(*(t.float() for t in args), a_cs, *cots)
+    for g, again, w, t in zip(first, second, want, args):
+        assert g.dtype == t.dtype and g.shape == t.shape and torch.equal(g, again)
+        assert ((g.float() - w).norm() / w.norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bad", ["P", "N", "dtype", "mixed"])
 def test_bwd_kernel_refuses_before_any_launch_on_card(bad):
     _card()

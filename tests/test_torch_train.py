@@ -14,6 +14,9 @@ summed in other orders.  Gradient accumulation over 2 microbatches
 agrees with one batch the same way.
 On the CPU the attention is the plain version, differentiated by
 autograd, as the reference differentiates its plain attention.
+Reduced jamba-1.5-large-398b joins the trainer's and the card's tests;
+its config keeps AdamW's moments in bf16, which the per-leaf 1e-5 does
+not allow for, so ``tests/test_torch_hybrid.py`` holds its train steps.
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +37,7 @@ from repro_torch.models import get_model
 from repro_torch.utils.tree import tree_flatten
 
 TOL = 1e-5
+FAMILIES = ["olmo-1b", "mamba2-130m", "granite-moe-1b-a400m", "jamba-1.5-large-398b"]
 
 
 def _pair(arch):
@@ -66,10 +70,10 @@ def _assert_params_close(got, want):
         assert _rel_l2(a.numpy(), b) <= TOL
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", FAMILIES[:3])
 def test_train_steps_match_reference(arch):
     jc, tc, jm, tm, jp, tp = _pair(arch)
-    seq = 2 * tc.ssm_chunk if tc.arch_type == "ssm" else 16
+    seq = 2 * tc.ssm_chunk if tc.arch_type in ("ssm", "hybrid") else 16
     jopt, topt = jax_optimizer_for(jc), make_optimizer_for(tc)
     jstate, tstate = jopt.init(jp), topt.init(tp)
     jstep = jax.jit(jax_train_step(jm, jopt))
@@ -116,7 +120,7 @@ def test_train_step_leaves_its_inputs_untouched():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", FAMILIES)
 def test_trainer_exit_code_matches_reference(arch, capsys):
     """``--reduced --device cpu``: the port's trainer exits as the
     reference's does (0 only if the loss fell) and reports both losses."""
@@ -129,17 +133,19 @@ def test_trainer_exit_code_matches_reference(arch, capsys):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", FAMILIES)
 def test_train_step_on_card_matches_cpu(arch):
     """Card only: one reduced fp32 train step on the card (the forward and
     backward kernels, one launch each a layer) against the same step on the
     CPU from the same weights: loss within 1e-4 relative and every leaf's
     gradient within 1e-4 relative L2; the updated parameters within 1e-4
     relative L2, leaf by leaf for olmo-1b and granite-moe-1b-a400m and as
-    one vector for mamba2-130m.  AdamW's first step moves an element by about lr whatever
-    its gradient's size, so an element whose gradient is near AdamW's eps
-    moves by an amount the gradient's last bits decide; mamba2's ``conv_b``
-    starts at zero, so such elements are a visible share of its norm."""
+    one vector for mamba2-130m and jamba (whose attention and Mamba layers
+    launch one backward each).  AdamW's first step moves an element by
+    about lr whatever its gradient's size, so an element whose gradient is
+    near AdamW's eps moves by an amount the gradient's last bits decide;
+    mamba2's ``conv_b`` starts at zero, so such elements are a visible
+    share of its norm."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -150,9 +156,11 @@ def test_train_step_on_card_matches_cpu(arch):
     cfg = get_config(arch).reduced().with_overrides(dtype="float32", param_dtype="float32")
     model = get_model(cfg)
     params = model.init(torch.Generator().manual_seed(5), "cpu")
-    seq = 2 * cfg.ssm_chunk if cfg.arch_type == "ssm" else 64
+    seq = 2 * cfg.ssm_chunk if cfg.arch_type in ("ssm", "hybrid") else 64
     _, batch = _batch(cfg, 2, seq, seed=1)
-    bwd = ssd_intra_chunk_bwd if cfg.arch_type == "ssm" else flash_attention_bwd
+    n_attn = (0 if cfg.arch_type == "ssm" else
+              cfg.n_layers // cfg.attn_period if cfg.arch_type == "hybrid" else cfg.n_layers)
+    bwds = (flash_attention_bwd, ssd_intra_chunk_bwd)
     runs = {}
     for device in ("cuda", "cpu"):
         p = tree_map(lambda t: t.to(device), params)
@@ -161,16 +169,16 @@ def test_train_step_on_card_matches_cpu(arch):
         live = [t.detach().requires_grad_(True) for t in leaves]
         grads = torch.autograd.grad(model.loss(tree_unflatten(treedef, live), b), live)
         opt = make_optimizer_for(cfg)
-        before = bwd.launches
+        before = [w.launches for w in bwds]
         new, _, loss = make_train_step(model, opt)(p, opt.init(p), b)
         runs[device] = ([t.cpu() for t in tree_flatten(new)[0]], [g.cpu() for g in grads],
-                        float(loss), bwd.launches - before)
+                        float(loss), [w.launches - n for w, n in zip(bwds, before)])
     (got, got_g, got_loss, got_n), (want, want_g, want_loss, want_n) = runs["cuda"], runs["cpu"]
-    assert (got_n, want_n) == (cfg.n_layers, 0)
+    assert (got_n, want_n) == ([n_attn, cfg.n_layers - n_attn], [0, 0])
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
     for a, b in zip(got_g, want_g):
         assert _rel_l2(a.numpy(), b.numpy()) <= 1e-4
-    if arch != "mamba2-130m":
+    if arch in ("olmo-1b", "granite-moe-1b-a400m"):
         for a, b in zip(got, want):
             assert _rel_l2(a.numpy(), b.numpy()) <= 1e-4
     else:

@@ -3,7 +3,7 @@ family: ``prefill`` (through ``make_prefill_step``), several
 ``decode_step``s with their caches (through ``make_serve_step``), the
 forward-only loss, and the serve driver's greedy tokens.
 
-Every ``dense``, ``moe``, ``vlm`` and ``ssm`` config of the repo, reduced
+Every ``dense``, ``moe``, ``vlm``, ``ssm`` and ``hybrid`` config of the repo, reduced
 and in fp32, starts from the reference's weights (``ModelFamily.init`` with a
 JAX key, carried over by ``params_from_numpy``) and numpy-seeded tokens.
 Logits agree within 1e-4 (abs and rel): both packages do the same fp32
@@ -33,7 +33,7 @@ from repro_torch.models import transformer as T
 
 TOL = 1e-4
 SERVED = ["internlm2-1.8b", "yi-9b", "deepseek-7b", "olmo-1b", "internvl2-2b", "mamba2-130m",
-          "granite-moe-1b-a400m", "deepseek-moe-16b"]
+          "granite-moe-1b-a400m", "deepseek-moe-16b", "jamba-1.5-large-398b"]
 
 
 def _close(got, want, tol=TOL):
@@ -67,7 +67,7 @@ def test_prefill_decode_and_loss_match_reference(arch):
     every step's logits, and the caches after them (the int8 cache of
     deepseek-7b bit for bit in its codes)."""
     jc, tc, jm, tm, jp, tp = _pair(arch)
-    seq = 2 * tc.ssm_chunk if tc.arch_type == "ssm" else 20
+    seq = 2 * tc.ssm_chunk if tc.arch_type in ("ssm", "hybrid") else 20
     jb, tb = _batches(tc, 2, seq, seed=1)
     logits = make_prefill_step(tm)(tp, tb)
     want = jax_prefill_step(jm)(jp, jb)
@@ -162,15 +162,6 @@ def test_serve_main_runs_on_cpu(capsys):
     assert len(eval(out.split("generated token ids (first sequence):")[1])) == 3
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
-def test_unported_families_raise(arch):
-    model = get_model(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15"):
-        model.init(torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.init_cache(1, 8, "cpu")
-
-
 @pytest.mark.parametrize("arch", SERVED)
 def test_param_counts_match_reference(arch):
     jc, tc, jm, tm, jp, tp = _pair(arch)
@@ -181,10 +172,11 @@ def test_param_counts_match_reference(arch):
 
 
 def test_zoo_entry_points_default_to_the_card():
-    from repro_torch.models import api, layers, mamba2, moe, ssm_lm
+    from repro_torch.models import api, hybrid, layers, mamba2, moe, ssm_lm
 
     for fn in (api.ModelFamily.init, api.ModelFamily.init_cache, T.init_lm, T.init_kv_cache,
-               ssm_lm.init_ssm_lm, ssm_lm.init_ssm_cache, mamba2.init_mamba,
+               ssm_lm.init_ssm_lm, ssm_lm.init_ssm_cache, hybrid.init_hybrid_lm,
+               hybrid.init_hybrid_cache, mamba2.init_mamba,
                mamba2.init_mamba_cache, layers.init_norm, layers.init_attention,
                layers.init_mlp, layers.init_embedding, layers.init_lm_head, moe.init_moe):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
