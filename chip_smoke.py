@@ -132,7 +132,29 @@ or of the JAX package.  In order it:
      deepseek-moe-16b, whisper-small and jamba in fp32 on the card and on the CPU
      from the same weights: one train step each, and one federated LoRA
      round of olmo-1b over 2 silos (adapters within 1e-4, base bit-equal,
-     traces equal).
+     traces equal);
+ 19. runs the live transport at the paper's FEMNIST width: the five
+     silos of ``femnist_application()`` as ``ThreadWorkerPool`` workers
+     behind ``SocketTransport`` on loopback, int8 updates folded by
+     ``dequant_fold`` in this process (one launch a folded update), 3
+     ``LiveRoundDriver`` rounds under a ``FaultPlan`` (round 2: a crash
+     and a corrupt frame; round 3: a revocation, moved to another VM by
+     the §4.4 ``DynamicScheduler``, and a hang, found by heartbeats whose
+     bound is sized from this run's GIL holds and dispatch time); each
+     round's wall time split, bytes and loopback GB/s, crash to
+     re-arrival and hang to detection, the cost model fed the measured
+     sizes, round 1 traced (the device's idle share) and replayed in
+     process on its recorded arrivals (params within 2e-5, equal
+     ``chaos_signature``);
+ 20. runs 2 mamba2-130m silos (full width and depth, bf16) as spawned
+     ``ProcessWorkerPool`` children that build their client and template
+     on the card and raise unless their weights are CUDA tensors and both
+     SSD kernels launched in them; 2 int8 rounds, one child terminated by
+     an eval-phase revocation and respawned; each fold against the plain
+     weighted fold of the same decoded deltas;
+ 21. runs ``tests/test_chaos.py``'s soak at its toy size with tensors on
+     the card: five rounds, all seven fault kinds, the live and the
+     virtual-clock drivers' signatures, pairing and folded weight.
 For each path every kernel's launch count is set to 0 just before and
 read just after.
 
@@ -1344,7 +1366,6 @@ def _trace_prefill(run, tag: str, what: str = "prefill") -> dict:
     kernels that take the most device time.  The profiler's own cost on the
     host is in the wall time; the timed prefills above are not traced."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1353,25 +1374,16 @@ def _trace_prefill(run, tag: str, what: str = "prefill") -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    busy_s, n_kernels, top = _device_busy(prof, 6)
+    if not n_kernels:
         say(f"{tag}: traced {what}: the profiler recorded no device time "
             f"(wall {wall * 1e3:.1f} ms)")
         return {"wall_s": wall, "device_busy_s": None}
-    busy, end = 0.0, -math.inf
-    by_name: dict = {}
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        start, stop = e.time_range.start, e.time_range.end
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start)
-    busy_s = busy * 1e-6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     say(f"{tag}: traced {what}: wall {wall * 1e3:.1f} ms, device busy {busy_s * 1e3:.1f} ms "
-        f"({len(kernels)} kernels), idle share {1 - busy_s / wall:.1%}; most device time: "
-        + "; ".join(f"{name[:60]} {t / 1e3:.2f} ms" for name, t in top))
-    return {"wall_s": wall, "device_busy_s": busy_s, "n_kernels": len(kernels),
-            "top_kernels_ms": [(name, t / 1e3) for name, t in top]}
+        f"({n_kernels} kernels), idle share {1 - busy_s / wall:.1%}; most device time: "
+        + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top))
+    return {"wall_s": wall, "device_busy_s": busy_s, "n_kernels": n_kernels,
+            "top_kernels_ms": top}
 
 
 def _moe_module():
@@ -2929,6 +2941,10 @@ def _zoo_train_phase(arch: str, batch: int, trainer_args: "list | None",
           f"a {arch} train step launches {_nonzero(only)}, got {all_launches}")
     zero_counts()
     holder = {}
+    # The profiler's own device buffers come on top of the step's peak
+    # (jamba's cut runs at 75.9 of 79.2 GiB): hand the allocator's free
+    # cached blocks back first, or the traced step can run out of memory.
+    torch.cuda.empty_cache()
 
     def traced():
         holder["out"] = step(params, state, batches[-1])
@@ -3136,6 +3152,822 @@ def phase_moe_fedavg_rounds():
     return _zoo_fedavg_phase("granite-moe-1b-a400m", "flash_attention", "flash_attention_bwd")
 
 
+# ---------------------------------------------------------------------------
+# The live transport and the chaos harness
+# ---------------------------------------------------------------------------
+
+LIVE_ROUNDS = 3         # phase A's rounds: round 1 clean (traced, replayed), 2 and 3 faulted
+LIVE_HANG_S = 600.0     # a hung silo's own bound; the heartbeats find it first
+LIVE_REPLY_TIMEOUT_S = 600.0
+LIVE_PROC_ROUNDS = 2    # phase B's rounds
+SOAK_HB = {"heartbeat_interval_s": 0.2, "heartbeat_timeout_s": 2.0}
+
+
+def _gil_probe(fn) -> tuple:
+    """``fn()``, its wall time, and the longest time a ticker thread that
+    asks for the GIL every millisecond waited meanwhile: how long ``fn``
+    can keep another Python thread (a worker's PONG) from running."""
+    import threading
+
+    gaps, stop = [0.0], threading.Event()
+
+    def tick():
+        last = time.monotonic()
+        while not stop.is_set():
+            time.sleep(0.001)
+            now = time.monotonic()
+            gaps[0] = max(gaps[0], now - last)
+            last = now
+
+    t = threading.Thread(target=tick, daemon=True)
+    t.start()
+    time.sleep(0.01)
+    gaps[0] = 0.0
+    t0 = time.monotonic()
+    out = fn()
+    wall = time.monotonic() - t0
+    stop.set()
+    t.join()
+    return out, wall, gaps[0]
+
+
+def _recording_transport():
+    """A ``SocketTransport`` that keeps every frame it sends (kind, silo,
+    payload bytes, seconds in ``sendall``, start) and every message it
+    receives (kind, silo, round, payload and wire bytes, time, and the
+    silo's reported train or eval time), and each silo's hello times."""
+    from repro_torch.federated import SocketTransport
+
+    class RecordingTransport(SocketTransport):
+        def __init__(self):
+            super().__init__(send_timeout_s=120.0)
+            self.sent, self.received, self.joined = [], [], {}
+
+        def send(self, client_id, header, payload=b""):
+            t0 = time.monotonic()
+            n = super().send(client_id, header, payload)
+            self.sent.append({"kind": header.get("kind"), "cid": client_id,
+                              "round": header.get("round_idx"), "payload": len(payload),
+                              "wire": n, "s": time.monotonic() - t0, "t": t0})
+            return n
+
+        def poll(self, timeout_s):
+            events = super().poll(timeout_s)
+            now = time.monotonic()
+            for ev in events:
+                if ev.kind == "joined":
+                    self.joined.setdefault(ev.client_id, []).append(now)
+                elif ev.kind == "message":
+                    h = ev.header
+                    self.received.append({
+                        "kind": h.get("kind"), "cid": ev.client_id, "round": h.get("round_idx"),
+                        "payload": len(ev.payload), "wire": ev.wire_bytes, "t": now,
+                        "compute_s": h.get("train_time_s", h.get("eval_time_s"))})
+            return events
+
+    return RecordingTransport()
+
+
+class _Spans:
+    """Host-clock spans of module functions on the live path, patched in
+    for a phase and restored after: (name, thread, start, seconds)."""
+
+    def __init__(self):
+        self.spans, self._undo = [], []
+
+    def wrap(self, owner, attr: str, name: str) -> None:
+        import threading
+
+        orig = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.spans.append((name, threading.current_thread().name, t0,
+                                   time.monotonic() - t0))
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def restore(self) -> None:
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo.clear()
+
+
+def _fold_device_timer():
+    """Wrap the aggregator's ``dequant_fold`` call (the kernel wrapper,
+    which still counts its launches) in CUDA events: each fold's device
+    time.  Returns (events, undo)."""
+    import torch
+    from repro_torch.federated import agg_engine
+
+    orig, events = agg_engine.dequant_fold, []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kwargs)
+        end.record()
+        events.append((time.monotonic(), start, end))
+        return out
+
+    agg_engine.dequant_fold = timed
+
+    def undo():
+        agg_engine.dequant_fold = orig
+
+    return events, undo
+
+
+def _device_busy(prof, n_top: int = 4) -> tuple:
+    """The union of the traced kernels' intervals (s), their count, and
+    the ``n_top`` kernels with the most device time (name, ms)."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end, by_name = 0.0, -math.inf, {}
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return busy * 1e-6, len(kernels), [(name, t / 1e3) for name, t in top]
+
+
+def _round_splits(rec, spans: _Spans, folds: list, round_t0: dict, records) -> list:
+    """Each round's wall time split: the driver's serialization of
+    s_msg_train / s_msg_aggreg, its sends (seconds in ``sendall``, bytes,
+    GB/s), the c_msg_train bytes back, the silos' reported train time
+    (longest), their deserialization, encode and frame (longest, where the
+    silos are threads of this process), the fold (host ``agg_time_s`` and
+    the kernels' device ms) and the evaluation phase."""
+    starts = sorted(round_t0.items())
+
+    def round_of(t):
+        r = None
+        for idx, t0 in starts:
+            if t >= t0:
+                r = idx
+        return r
+
+    out = []
+    for rr in records:
+        r = rr.round_idx
+        mine = [s for s in spans.spans if round_of(s[2]) == r]
+        driver_ser = [s[3] for s in mine if s[0] == "serialize_pytree" and s[1] == "MainThread"]
+        silo = {k: max([s[3] for s in mine if s[0] == k and s[1] != "MainThread"], default=0.0)
+                for k in ("deserialize_pytree", "encode", "serialize_update")}
+        sends = {k: [m for m in rec.sent if m["kind"] == k and m["round"] == r]
+                 for k in ("s_msg_train", "s_msg_aggreg")}
+        back = [m for m in rec.received if m["kind"] == "c_msg_train" and m["round"] == r]
+        fold_ms = [a.elapsed_time(b) for t, a, b in folds if round_of(t) == r]
+        row = {
+            "round": r, "wall_s": rr.train_time_s + rr.eval_time_s + rr.checkpoint_time_s,
+            "train_phase_s": rr.train_time_s, "eval_phase_s": rr.eval_time_s,
+            "serialize_s_msg_train_s": driver_ser[0] if driver_ser else None,
+            "serialize_s_msg_aggreg_s": driver_ser[1] if len(driver_ser) > 1 else None,
+            "silo_deserialize_s": silo["deserialize_pytree"], "silo_encode_s": silo["encode"],
+            "silo_frame_s": silo["serialize_update"],
+            "silo_train_s": max([m["compute_s"] or 0.0 for m in back], default=0.0),
+            "c_msg_train_bytes": sum(m["payload"] for m in back), "c_msg_train_n": len(back),
+            "agg_time_s": rr.agg_time_s, "fold_device_ms": fold_ms,
+        }
+        for k, ms in sends.items():
+            nbytes, secs = sum(m["payload"] for m in ms), sum(m["s"] for m in ms)
+            row[f"{k}_bytes"], row[f"{k}_send_s"], row[f"{k}_n"] = nbytes, secs, len(ms)
+            row[f"{k}_gb_s"] = nbytes / secs / 1e9 if secs > 0 else None
+        out.append(row)
+    return out
+
+
+def _say_splits(tag: str, rows: list) -> None:
+    for row in rows:
+        def f(x, fmt=".3f"):
+            return "n/a" if x is None else format(x, fmt)
+        say(f"{tag} round {row['round']}: wall {row['wall_s']:.3f} s = train phase "
+            f"{row['train_phase_s']:.3f} s (serialize s_msg_train "
+            f"{f(row['serialize_s_msg_train_s'])} s; send {row['s_msg_train_n']} x "
+            f"{row['s_msg_train_bytes'] / max(row['s_msg_train_n'], 1) / 1e6:.1f} MB in "
+            f"{row['s_msg_train_send_s']:.3f} s = {f(row['s_msg_train_gb_s'], '.2f')} GB/s; "
+            f"silos: deserialize {row['silo_deserialize_s']:.3f} s, train "
+            f"{row['silo_train_s']:.3f} s, encode {row['silo_encode_s']:.3f} s, frame "
+            f"{row['silo_frame_s']:.3f} s (longest); {row['c_msg_train_n']} c_msg_train = "
+            f"{row['c_msg_train_bytes'] / 1e6:.1f} MB back; fold agg_time_s "
+            f"{row['agg_time_s']:.3f} s, device "
+            + "+".join(f"{ms:.3f}" for ms in row["fold_device_ms"]) + " ms) + eval phase "
+            f"{row['eval_phase_s']:.3f} s (serialize s_msg_aggreg "
+            f"{f(row['serialize_s_msg_aggreg_s'])} s; send {row['s_msg_aggreg_n']} x "
+            f"{row['s_msg_aggreg_bytes'] / max(row['s_msg_aggreg_n'], 1) / 1e6:.1f} MB in "
+            f"{row['s_msg_aggreg_send_s']:.3f} s = {f(row['s_msg_aggreg_gb_s'], '.2f')} GB/s)")
+
+
+def _femnist_live_silos():
+    """The five silos of ``femnist_application()``, named and sized as its
+    clients (796-1050 train and 90-118 test samples)."""
+    import dataclasses
+
+    from repro_torch.core import femnist_application
+    from repro_torch.data import make_classification_silos
+
+    app = femnist_application()
+    sizes = [(c.n_train_samples, c.n_test_samples) for c in app.clients]
+    silos = make_classification_silos(len(sizes), 62, (28, 28, 1), sizes, seed=0)
+    return [dataclasses.replace(s, client_id=c.client_id) for s, c in zip(silos, app.clients)]
+
+
+def phase_live_round():
+    """The live transport at the paper's FEMNIST width on the card: the
+    five silos of ``femnist_application()`` as ``ThreadWorkerPool``
+    workers behind ``SocketTransport`` on loopback, int8 updates folded
+    by ``dequant_fold`` in this process, 3 rounds of ``LiveRoundDriver``
+    with a ``FaultPlan``: round 2 a crash (re-requested) and a corrupt
+    frame, round 3 a revocation (the §4.4 ``DynamicScheduler`` moves the
+    silo to another VM) and a hang (found by heartbeats).  The heartbeat
+    bound is sized from this run's measurements: the GIL hold of
+    serializing and deserializing the 656.7 MB tree, and the time to
+    dispatch it to five silos.  Round 1 is traced (the device's idle
+    share) and replayed in process (``AsyncFLServer`` with a
+    ``RecordedSchedule`` of its arrivals): params within 2e-5, equal
+    ``chaos_signature``."""
+    import dataclasses
+    import itertools
+    import socket
+    import threading
+
+    import torch
+    from repro_torch.core import (
+        Assignment, CostModel, DynamicScheduler, cloudlab_environment, femnist_application)
+    from repro_torch.core.events import RevocationOccurred, RoundDispatched, UpdateArrived
+    from repro_torch.federated import (
+        AsyncFLServer, ChaosClient, ClientArrival, FaultPlan, FaultSpec, LiveRoundDriver,
+        RecordedSchedule, ThreadWorkerPool, chaos_signature, compression, to_cost_model_sizes,
+        transport, verify_fault_pairing)
+    from repro_torch.federated.compression import compressed_wire_bytes, parse_compression
+    from repro_torch.federated.transport import recv_frame, send_frame
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = FemnistConfig()
+    params0 = init_femnist_cnn(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    check(sum(t.numel() for t in tree_leaves(params0)) == PAPER_L, "FEMNIST at L = PAPER_L")
+    n_silos = len(femnist_application().clients)
+
+    # Sizing the heartbeats: the longest GIL hold the live path's host work
+    # imposes on a worker's receive loop, and the dispatch of one round.
+    blob, ser_s, ser_gap = _gil_probe(lambda: transport.serialize_pytree(params0))
+    _, de_s, de_gap = _gil_probe(lambda: transport.deserialize_pytree(blob, params0))
+    a, b = socket.socketpair()
+    got = {}
+    reader = threading.Thread(target=lambda: got.setdefault("f", recv_frame(b)), daemon=True)
+    reader.start()
+    _, send_s, send_gap = _gil_probe(
+        lambda: send_frame(a, {"kind": "s_msg_train", "round_idx": 1}, blob))
+    reader.join()
+    a.close()
+    b.close()
+    check(bytes(got["f"][1]) == blob, "a 656.7 MB frame crosses loopback intact")
+    del blob, got
+
+    silos = _femnist_live_silos()
+    cids = [s.client_id for s in silos]
+    plan = FaultPlan([
+        FaultSpec("crash", cids[1], 2), FaultSpec("corrupt_frame", cids[2], 2),
+        FaultSpec("revocation", cids[3], 3), FaultSpec("hang", cids[4], 3),
+    ], seed=0)
+
+    class TimedChaosClient(ChaosClient):
+        """Records when each of its faults fired."""
+
+        def __init__(self, inner):
+            super().__init__(inner, plan, hang_s=LIVE_HANG_S)
+            self.fired_at = {}
+
+        def _take(self, *kinds):
+            f = super()._take(*kinds)
+            if f is not None:
+                self.fired_at[f.key] = time.monotonic()
+            return f
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    opt = make_optimizer("adamw", 1e-4)
+    clients = _femnist_clients(cfg, silos, opt, "cuda")
+
+    def warm(c):
+        p, state = params0, opt.init(params0)
+        for raw in itertools.islice(c.silo.batches(c.batch_size), 3):
+            p, state, _ = c._train_step(p, state, c.batch_fn(raw))
+        c.evaluate(params0)
+
+    def warm_up():
+        # Three train steps and an evaluation of every silo at once, each
+        # on a thread as in a round: the first cuDNN and cuBLAS calls of
+        # each silo out of the rounds, and the GIL waits five training
+        # threads impose.
+        threads = [threading.Thread(target=warm, args=(c,)) for c in clients]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    _, warm_s, train_gap = _gil_probe(warm_up)
+    gil_hold = max(ser_gap, de_gap, send_gap, train_gap)
+    dispatch_s = ser_s + n_silos * send_s
+    hb_timeout = 2.0 * dispatch_s + 10.0 * gil_hold
+    hb_interval = hb_timeout / 10.0
+    say(f"[live] heartbeat sizing at L = {PAPER_L:,}: serialize_pytree {ser_s:.3f} s "
+        f"(longest GIL hold {ser_gap * 1e3:.1f} ms), deserialize_pytree {de_s:.3f} s (hold "
+        f"{de_gap * 1e3:.1f} ms), one weight frame over loopback {send_s:.3f} s = "
+        f"{PAPER_L * 4 / send_s / 1e9:.2f} GB/s (hold {send_gap * 1e3:.1f} ms), the {n_silos} "
+        f"silos training at once {warm_s:.3f} s (hold {train_gap * 1e3:.1f} ms); dispatch of {n_silos} ~ {dispatch_s:.3f} s; "
+        f"heartbeat_timeout_s = 2 x dispatch + 10 x longest hold = {hb_timeout:.3f} s, "
+        f"heartbeat_interval_s {hb_interval:.3f} s")
+    wrapped = [TimedChaosClient(c) for c in clients]
+    env, app = cloudlab_environment(), femnist_application()
+    placement = {"s": Assignment("vm_126", "on_demand")}
+    for cid, vm in zip(cids, ("vm_112", "vm_121", "vm_135", "vm_211", "vm_221")):
+        placement[cid] = Assignment(vm, "spot")
+    placement0 = dict(placement)
+    cm = CostModel(cloudlab_environment(), femnist_application(), 0.5)
+    estimate = dataclasses.asdict(app.messages)
+    rec = _recording_transport()
+    driver = LiveRoundDriver(
+        ThreadWorkerPool(wrapped, params0, compression="int8", device="cuda"), params0,
+        transport=rec, compression="int8", device="cuda",
+        reply_timeout_s=LIVE_REPLY_TIMEOUT_S, startup_timeout_s=120.0,
+        heartbeat_interval_s=hb_interval, heartbeat_timeout_s=hb_timeout,
+        scheduler=DynamicScheduler(CostModel(env, app, 0.5)), placement=placement,
+        cost_model=cm, chaos=plan)
+
+    round_t0, snap = {}, {}
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+    def on_dispatch(ev):
+        round_t0[ev.round_idx] = time.monotonic()
+        if ev.round_idx == 2:
+            torch.cuda.synchronize()
+            prof.stop()
+            snap["trace_wall_s"] = time.monotonic() - snap["trace_t0"]
+            snap["params"] = tree_map(lambda t: t.clone(), driver.params)
+            snap["messages"] = dataclasses.asdict(cm.app.messages)
+
+    driver.bus.subscribe(RoundDispatched, on_dispatch)
+    spans = _Spans()
+    spans.wrap(transport, "serialize_pytree", "serialize_pytree")
+    spans.wrap(transport, "deserialize_pytree", "deserialize_pytree")
+    spans.wrap(compression.ClientCompressor, "encode", "encode")
+    spans.wrap(compression, "serialize_update", "serialize_update")
+    folds, undo_folds = _fold_device_timer()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    try:
+        with driver:
+            # Round 1 is traced from just before its dispatch to round 2's
+            # (the profiler's start stays out of the round's heartbeat clock).
+            torch.cuda.synchronize()
+            prof.start()
+            snap["trace_t0"] = time.monotonic()
+            res = driver.run(LIVE_ROUNDS)
+    finally:
+        spans.restore()
+        undo_folds()
+    wall = time.monotonic() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    busy_s, n_kernels, top = _device_busy(prof)
+    trace = driver.trace
+    rows = _round_splits(rec, spans, folds, round_t0, res.rounds)
+    _say_splits("[live]", rows)
+
+    # Faults: paired, the revoked silo moved, crash -> re-arrival and hang -> detection.
+    pairing = verify_fault_pairing(plan, trace)
+    replaced = [e for e in trace if type(e).__name__ == "VMReplaced"]
+    say(f"[live] {LIVE_ROUNDS} rounds in {wall:.1f} s; fault pairing "
+        + ", ".join(f"{k[0]} {k[1]} r{k[2]}: {v}" for k, v in pairing.items())
+        + "; VM replacements " + ", ".join(f"{e.task} {e.old_vm} -> {e.new_vm} ({e.market})"
+                                          for e in replaced))
+    fired = {}
+    for w in wrapped:
+        fired.update(w.fired_at)
+
+    def at(ev):  # an engine event's wall time: its offset from its round's dispatch
+        return round_t0[ev.round_idx] + ev.time_s
+
+    crash_key = ("crash", cids[1], 2, "train")
+    rearrive = [e for e in trace if isinstance(e, UpdateArrived) and e.task == cids[1]
+                and e.round_idx == 2 and e.attempt >= 2]
+    crash_to_rearrival = at(rearrive[0]) - fired[crash_key] if rearrive else None
+    hang_key = ("hang", cids[4], 3, "train")
+    detected = [e for e in trace if isinstance(e, RevocationOccurred) and e.task == cids[4]
+                and e.round_idx == 3]
+    hang_to_detection = at(detected[0]) - fired[hang_key] if detected else None
+    say(f"[live] crash of {cids[1]} in round 2 to its re-arrival: "
+        f"{crash_to_rearrival if crash_to_rearrival is None else f'{crash_to_rearrival:.3f}'} s; "
+        f"hang of {cids[4]} in round 3 to its detection: "
+        f"{hang_to_detection if hang_to_detection is None else f'{hang_to_detection:.3f}'} s "
+        f"(heartbeat_timeout_s {hb_timeout:.3f})")
+    check("unpaired" not in pairing.values(), f"every fault paired: {pairing}")
+    check(all(pairing[f.key] == "recovered" for f in plan), f"every fault recovered: {pairing}")
+    # Every restart asks the scheduler (the crashed and the hung silo's
+    # too); the revoked silo's is the one the plan names.
+    moved = [e for e in replaced if e.task == cids[3]]
+    check(len(moved) == 1 and moved[0].old_vm == placement0[cids[3]].vm_id
+          and moved[0].new_vm != moved[0].old_vm
+          and placement[cids[3]].vm_id == moved[0].new_vm
+          and all(e.new_vm != e.old_vm for e in replaced)
+          and {e.task for e in replaced} == {cids[1], cids[3], cids[4]},
+          f"the revoked silo lands on another VM: {replaced}")
+    check(driver.cohort == cids, f"every silo still in the cohort: {driver.cohort}")
+
+    # Folded weight, launches, wire bytes.
+    samples = sum(s.n_train for s in silos)
+    weights = {}
+    for e in trace:
+        if type(e).__name__ == "UpdateFolded":
+            weights[e.round_idx] = weights.get(e.round_idx, 0.0) + e.weight
+    n_folded = sum(1 for e in trace if type(e).__name__ == "UpdateFolded")
+    say(f"[live] folded weight per round {weights} (the silos' samples: {samples}); "
+        f"{n_folded} folded updates; launches in this process {_nonzero(launches)}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    check(weights == {r: float(samples) for r in range(1, LIVE_ROUNDS + 1)},
+          f"every round folds all {n_silos} silos' samples: {weights}")
+    check(launches == dict.fromkeys(KERNELS, 0) | {"dequant_fold": n_folded}
+          and n_folded == n_silos * LIVE_ROUNDS,
+          f"dequant_fold once per folded update, nothing else: {launches}, {n_folded} folds")
+    want_bytes = compressed_wire_bytes(PAPER_L, parse_compression("int8"))
+    replies = [m["payload"] for m in rec.received if m["kind"] == "c_msg_train"]
+    odd = [n for n in replies if n != want_bytes]
+    say(f"[live] {len(replies)} c_msg_train replies, {len(replies) - len(odd)} of "
+        f"compressed_wire_bytes(L, int8) = {want_bytes} B, others {odd} (the corrupt frame "
+        f"is cut to half)")
+    check(odd == [want_bytes // 2] and len(replies) == n_folded + 1,
+          "every reply is compressed_wire_bytes(L, int8) but the one corrupt frame")
+
+    # Eq. 6 fed from the measured log.
+    log1 = res.rounds[0].message_log
+    measured = dataclasses.asdict(to_cost_model_sizes(log1))
+    say(f"[live] cost model message sizes after round 1: {snap['messages']}; the measured "
+        f"log gives {measured}; femnist_application() estimated {estimate}")
+    check(snap["messages"] == measured, "the cost model carries round 1's measured sizes")
+
+    say(f"[live] traced round 1: wall {snap['trace_wall_s']:.3f} s, device busy "
+        f"{busy_s:.3f} s ({n_kernels} kernels), idle share "
+        f"{1 - busy_s / snap['trace_wall_s']:.1%}; most device time: "
+        + "; ".join(f"{n[:50]} {t:.1f} ms" for n, t in top))
+
+    # Round 1 replayed in process on its recorded arrivals.
+    arrivals = {e.client_id: ClientArrival(e.client_id, e.arrival_s)
+                for e in driver.fold_reports[0].events}
+    live_r1 = []
+    for e in trace:
+        live_r1.append(e)
+        if type(e).__name__ == "RoundClosed":
+            break
+    replay_clients = _femnist_clients(cfg, _femnist_live_silos(), make_optimizer("adamw", 1e-4),
+                                      "cuda")
+    server = AsyncFLServer(
+        replay_clients,
+        init_femnist_cnn(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"),
+        schedule=RecordedSchedule(arrivals), compression="int8", device="cuda")
+    replay = server.run(1)
+    diff = max((x.float() - y.float()).abs().max().item() for x, y in
+               zip(tree_leaves(replay.final_params), tree_leaves(snap["params"])))
+    same_sig = chaos_signature(server.bus.trace) == chaos_signature(live_r1)
+    say(f"[live] round 1 replayed in process on its recorded arrivals: max|param live - "
+        f"replay| = {diff:.3e} (tol 2e-5); chaos_signature equal: {same_sig}")
+    check(diff <= 2e-5, "the replayed round agrees with the live round within 2e-5")
+    check(same_sig, "the replayed round's chaos_signature equals the live round's")
+    check(all(t.is_cuda for t in tree_leaves(res.final_params)), "every parameter on cuda")
+    check(all(math.isfinite(r.metrics["loss"]) for r in res.rounds), "finite losses")
+    torch.backends.cudnn.deterministic = False
+    out = {"launches": launches, "rounds": rows, "wall_s": wall, "pairing":
+           {"/".join(map(str, k)): v for k, v in pairing.items()},
+           "replaced": [dataclasses.asdict(e) for e in replaced],
+           "crash_to_rearrival_s": crash_to_rearrival, "hang_to_detection_s": hang_to_detection,
+           "heartbeat": {"serialize_s": ser_s, "serialize_gil_hold_s": ser_gap,
+                         "deserialize_s": de_s, "deserialize_gil_hold_s": de_gap,
+                         "frame_loopback_s": send_s, "frame_gil_hold_s": send_gap,
+                         "training_gil_hold_s": train_gap, "dispatch_s": dispatch_s, "timeout_s": hb_timeout,
+                         "interval_s": hb_interval},
+           "folded_weight": weights, "c_msg_train_bytes": want_bytes,
+           "cost_model_after_round_1": snap["messages"], "estimate": estimate,
+           "trace": {"wall_s": snap["trace_wall_s"], "device_busy_s": busy_s,
+                     "n_kernels": n_kernels, "top_ms": top},
+           "replay_max_param_diff": diff, "replay_signature_equal": same_sig,
+           "losses": [r.metrics["loss"] for r in res.rounds], "peak_bytes": peak}
+    del driver, res, clients, wrapped, server, replay, snap, params0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_live_client(index: int):
+    """Spawned-worker factory: the ``index``-th mamba2-130m silo of
+    ``_zoo_fedavg_phase``, built in the child on the card.  Its ``train``
+    raises (a crash the driver sees as EOF) unless the weights it received
+    are CUDA tensors and the child's own ``ssd_chunk_scan`` and
+    ``ssd_intra_chunk_bwd`` launched during the call."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_silos
+    from repro_torch.federated import FLClient
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_intra_chunk_bwd
+    from repro_torch.launch.steps import make_optimizer_for
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("mamba2-130m")
+    model = get_model(cfg)
+    silo = make_lm_silos(ZOO_SILOS, cfg.vocab_size, PREFILL_S, [(4, 2)] * ZOO_SILOS, seed=0)[index]
+
+    def loss_fn(p, b):
+        return model.loss(p, {"tokens": b[0], "labels": b[1]})
+
+    class KernelCheckedClient(FLClient):
+        def train(self, global_params):
+            if not all(t.is_cuda for t in tree_leaves(global_params)):
+                raise RuntimeError("the silo's weights are not on the card")
+            fwd, bwd = ssd_chunk_scan.launches, ssd_intra_chunk_bwd.launches
+            res = super().train(global_params)
+            if ssd_chunk_scan.launches == fwd or ssd_intra_chunk_bwd.launches == bwd:
+                raise RuntimeError("the silo trained without the SSD kernels")
+            return res
+
+    return KernelCheckedClient(silo.client_id, silo, loss_fn, make_optimizer_for(cfg),
+                               batch_size=2, device="cuda")
+
+
+def phase_live_process_round():
+    """mamba2-130m silos as spawned processes on the card: ZOO_SILOS
+    ``ProcessWorkerPool`` children (``_ssm_live_client``), each building
+    its client and the template on the card, int8 updates, 2 rounds; in
+    round 1 the second silo's VM is revoked during evaluation, so its
+    process is terminated and a replacement spawned on the same card,
+    which trains round 2.  No RevocationOccurred and no exclusion may
+    appear: each child's ``train`` raises unless both SSD kernels ran in
+    it on CUDA weights.  Each fold is held against the plain weighted fold
+    of the same decoded deltas, in the same order, on the card."""
+    import functools
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import RoundDispatched
+    from repro_torch.federated import (
+        FaultPlan, FaultSpec, LiveRoundDriver, ProcessWorkerPool, agg_engine, compression,
+        transport)
+    from repro_torch.kernels.dequant_fold import dequant_fold_plain, f32_scalar
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_flatten
+
+    cfg = get_config("mamba2-130m")
+    model = get_model(cfg)
+    params0 = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = model.param_count(params0)
+    cids = [f"client_{i}" for i in range(ZOO_SILOS)]
+
+    class TimedPool(ProcessWorkerPool):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.spawned_at = {}
+
+        def _spawn(self, client_id, address):
+            self.spawned_at.setdefault(client_id, []).append(time.monotonic())
+            super()._spawn(client_id, address)
+
+    pool = TimedPool({cid: functools.partial(_ssm_live_client, i) for i, cid in enumerate(cids)},
+                     params0, compression="int8", device="cuda")
+    plan = FaultPlan([FaultSpec("revocation", cids[-1], 1, phase="eval")])
+    rec = _recording_transport()
+    driver = LiveRoundDriver(pool, params0, transport=rec, compression="int8", device="cuda",
+                             reply_timeout_s=LIVE_REPLY_TIMEOUT_S, startup_timeout_s=300.0,
+                             max_rerequests=0, chaos=plan)
+    fold_checks = []
+    engine_fold = driver._engine.fold_round
+
+    def checked_fold(round_idx, results, schedule, deadline=None, base_params=None,
+                     emit_partial=False):
+        report = engine_fold(round_idx, results, schedule, deadline=deadline,
+                             base_params=base_params, emit_partial=emit_partial)
+        plan_ = agg_engine.plan_for(base_params)
+        base_flat = plan_.flatten(base_params)
+        lp = -(-plan_.total_elems // compression.QBLOCK) * compression.QBLOCK
+        acc = torch.zeros(lp, dtype=torch.float32, device="cuda")
+        by_id = {r.client_id: r for r in results}
+        wsum = 0.0
+        for ev in report.events:
+            u = by_id[ev.client_id].params
+            dequant_fold_plain(acc, u.data.to("cuda"), u.scales.to("cuda"), ev.folded_weight)
+            wsum += ev.folded_weight
+        want = plan_.unflatten(base_flat + acc[:plan_.total_elems] * f32_scalar(1.0 / wsum))
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(tree_flatten(report.params)[0], tree_flatten(want)[0]))
+        fold_checks.append({"round": round_idx, "max_abs_err": err,
+                            "order": [ev.client_id for ev in report.events],
+                            "weights": [ev.folded_weight for ev in report.events]})
+        del base_flat, acc, want
+        return report
+
+    driver._engine.fold_round = checked_fold
+    round_t0 = {}
+    driver.bus.subscribe(RoundDispatched,
+                         lambda ev: round_t0.__setitem__(ev.round_idx, time.monotonic()))
+    spans = _Spans()
+    spans.wrap(transport, "serialize_pytree", "serialize_pytree")
+    folds, undo_folds = _fold_device_timer()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.monotonic()
+    try:
+        with driver:
+            res = driver.run(LIVE_PROC_ROUNDS)
+    finally:
+        spans.restore()
+        undo_folds()
+    wall = time.monotonic() - t0
+    launches = counts()
+    trace = driver.trace
+    rows = _round_splits(rec, spans, folds, round_t0, res.rounds)
+    _say_splits("[live-proc]", rows)
+    hello = {cid: [j - s for s, j in zip(pool.spawned_at.get(cid, []), rec.joined.get(cid, []))]
+             for cid in cids}
+    revoked = [e for e in trace if type(e).__name__ == "RevocationOccurred"]
+    excluded = [r.excluded for r in driver.fold_reports]
+    n_folded = sum(1 for e in trace if type(e).__name__ == "UpdateFolded")
+    say(f"[live-proc] mamba2-130m bf16, {n_params:,} parameters, {ZOO_SILOS} spawned silos, "
+        f"{LIVE_PROC_ROUNDS} int8 rounds in {wall:.1f} s; spawn to hello (s) "
+        + ", ".join(f"{cid} " + "/".join(f"{x:.2f}" for x in xs) for cid, xs in hello.items())
+        + f"; revocations {len(revoked)}, exclusions {excluded}; launches in this process "
+        f"{_nonzero(launches)}; folds against the plain fold: "
+        + ", ".join(f"round {c['round']} {c['order']} max|diff| {c['max_abs_err']:.3e}"
+                    for c in fold_checks))
+    check(not revoked and not any(excluded),
+          "no revocation and no exclusion: every child trained on CUDA weights through "
+          "ssd_chunk_scan and ssd_intra_chunk_bwd")
+    check(len(pool.spawned_at[cids[-1]]) == 2 and len(rec.joined.get(cids[-1], [])) == 2,
+          "the eval-phase revocation terminated the process and its replacement rejoined")
+    check(driver.cohort == cids, "both silos still in the cohort")
+    check(n_folded == ZOO_SILOS * LIVE_PROC_ROUNDS
+          and launches == dict.fromkeys(KERNELS, 0) | {"dequant_fold": n_folded},
+          f"dequant_fold once per folded update in this process, nothing else: {launches}")
+    check(len(fold_checks) == LIVE_PROC_ROUNDS
+          and all(c["max_abs_err"] <= 2e-5 for c in fold_checks),
+          "each fold equals the plain weighted fold of the decoded deltas within 2e-5")
+    check(all(math.isfinite(r.metrics["loss"]) for r in res.rounds), "finite losses")
+    out = {"launches": launches, "rounds": rows, "wall_s": wall, "spawn_to_hello_s": hello,
+           "fold_checks": fold_checks, "n_params": n_params,
+           "losses": [r.metrics["loss"] for r in res.rounds]}
+    del driver, res, params0, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def _toy_live_clients(device: str):
+    """tests/test_chaos.py's three paced silos (12, 20, 16 examples of a
+    3-weight linear model; replies 0, 0.05, 0.1 s apart), warmed up."""
+    import numpy as np
+    import torch
+    from repro_torch.federated import FLClient
+    from repro_torch.optim import make_optimizer
+
+    class Silo:
+        def __init__(self, client_id, x, y):
+            self.client_id, self.x, self.y = client_id, x, y
+
+        def batches(self, batch_size, split="train"):
+            for i in range(0, len(self.x), batch_size):
+                yield (self.x[i:i + batch_size], self.y[i:i + batch_size])
+
+    class Paced(FLClient):
+        def train(self, global_params):
+            time.sleep(self.delay_s)
+            return super().train(global_params)
+
+    def loss(p, b):
+        return torch.mean((b[0] @ p["w"] - b[1]) ** 2)
+
+    rng = np.random.default_rng(0)
+    out = []
+    for cid, n, delay in (("c0", 12, 0.0), ("c1", 20, 0.05), ("c2", 16, 0.1)):
+        x = rng.standard_normal((n, 3)).astype(np.float32)
+        y = rng.standard_normal((n,)).astype(np.float32)
+        c = Paced(cid, Silo(cid, x, y), loss, make_optimizer("sgdm", 1e-2), batch_size=8,
+                  device=device)
+        c.delay_s = 0.0
+        c.train({"w": torch.zeros(3, device=device)})
+        c.evaluate({"w": torch.zeros(3, device=device)})
+        c.delay_s = delay
+        out.append(c)
+    return out
+
+
+def _toy_scheduler():
+    """``DynamicScheduler(CostModel(env, app, 0.5))`` over tests/conftest.py's
+    toy environment (3 VMs, two providers) and application (3 clients)."""
+    from repro_torch.core import (
+        ClientSpec, CloudEnvironment, CostModel, DynamicScheduler, FLApplication,
+        MessageSizes, Provider, Region, VMType)
+
+    regions = ["r0", "r1", "r0"]
+    env = CloudEnvironment(
+        [Provider("p0", 0.01), Provider("p1", 0.02)], [Region("r0", "p0"), Region("r1", "p1")],
+        [VMType(f"vm{i}", f"t{i}", "p0" if r == "r0" else "p1", r, 4, 0, 16, 1.0 + i,
+                (1.0 + i) * 0.3) for i, r in enumerate(regions)])
+    env.sl_inst = {f"vm{i}": 1.0 for i in range(3)}
+    env.sl_comm = {("r0", "r0"): 1.0, ("r0", "r1"): 2.0, ("r1", "r1"): 1.0}
+    app = FLApplication(name="toy", clients=[ClientSpec(f"c{i}", 100.0, 10.0) for i in range(3)],
+                        messages=MessageSizes(0.1, 0.1, 0.1, 1e-6), n_rounds=5,
+                        train_comm_bl=5.0, test_comm_bl=1.0, aggreg_bl=1.0)
+    return DynamicScheduler(CostModel(env, app, 0.5))
+
+
+def phase_chaos_soak(ckpt_root: Path):
+    """tests/test_chaos.py's soak at its own toy size, tensors on the card:
+    one plan over five rounds (crash, slow, corrupt frame, hang, a §4.4
+    cross-host revocation, checkpoint sabotage with server and client
+    checkpoints), replayed on the live driver (threads, loopback,
+    heartbeats every 0.2 s with a 2 s bound) and on the virtual-clock
+    ``AsyncFLServer``.  A check of semantics, small by design."""
+    import torch
+    from repro_torch.checkpoint import ClientCheckpointManager, ServerCheckpointManager
+    from repro_torch.core import Assignment
+    from repro_torch.core.events import EventBus
+    from repro_torch.federated import (
+        AsyncFLServer, ChaosSchedule, DeterministicSchedule, FaultPlan, FaultSpec,
+        LiveRoundDriver, ThreadWorkerPool, chaos_signature, checkpoint_saboteur,
+        verify_fault_pairing)
+
+    plan = FaultPlan([
+        FaultSpec("crash", "c0", 1), FaultSpec("slow", "c1", 2, delay_s=0.25),
+        FaultSpec("corrupt_frame", "c2", 2), FaultSpec("hang", "c1", 3, delay_s=0.25),
+        FaultSpec("revocation", "c0", 4), FaultSpec("corrupt_checkpoint", "s", 4),
+    ], seed=7)
+
+    def ckpts(root):
+        server = ServerCheckpointManager(str(root / "server_local"), str(root / "server_remote"),
+                                         interval_rounds=1, keep_last=3)
+        return server, {c: ClientCheckpointManager(str(root / f"ckpt_{c}"))
+                        for c in ("c0", "c1", "c2")}
+
+    def init():
+        return {"w": torch.zeros(3, device="cuda")}
+
+    live_server, live_clients = ckpts(ckpt_root / "live")
+    placement = {cid: Assignment("vm0", "spot") for cid in ("s", "c0", "c1", "c2")}
+    driver = LiveRoundDriver(
+        ThreadWorkerPool(plan.wrap_clients(_toy_live_clients("cuda")), init(), device="cuda"),
+        init(), device="cuda", chaos=plan, reply_timeout_s=60.0, max_rerequests=2, scheduler=_toy_scheduler(),
+        placement=placement, server_ckpt=live_server, client_ckpts=live_clients, **SOAK_HB)
+    t0 = time.monotonic()
+    with driver:
+        live = driver.run(5)
+    wall = time.monotonic() - t0
+    sim_server, sim_clients = ckpts(ckpt_root / "sim")
+    bus = EventBus()
+    server = AsyncFLServer(
+        _toy_live_clients("cuda"), init(),
+        schedule=ChaosSchedule(DeterministicSchedule({"c0": 0.01, "c1": 0.02, "c2": 0.03}),
+                               plan, bus=bus),
+        on_revocation="rerequest", max_rerequests=2, bus=bus, server_ckpt=sim_server,
+        client_ckpts=sim_clients, fault_hook=checkpoint_saboteur(plan, sim_server, bus),
+        device="cuda")
+    sim = server.run(5)
+    pairings = [verify_fault_pairing(plan, t) for t in (driver.trace, server.bus.trace)]
+    weights = []
+    for t in (driver.trace, server.bus.trace):
+        w = {}
+        for e in t:
+            if type(e).__name__ == "UpdateFolded":
+                w[e.round_idx] = w.get(e.round_idx, 0.0) + e.weight
+        weights.append(w)
+    same_sig = chaos_signature(driver.trace) == chaos_signature(server.bus.trace)
+    recoveries = [(e.resume_round, e.restored_from) for e in driver.trace
+                  if type(e).__name__ == "RecoveryCompleted"]
+    replaced = [(e.task, e.old_vm, e.new_vm) for e in driver.trace
+                if type(e).__name__ == "VMReplaced"]
+    diff = (live.final_params["w"] - sim.final_params["w"]).abs().max().item()
+    say(f"[soak] 5 rounds on the card in {wall:.1f} s: live pairing "
+        + ", ".join(f"{k[0]} {k[1]} r{k[2]}: {v}" for k, v in pairings[0].items())
+        + f"; folded weight live {weights[0]}, virtual {weights[1]}; chaos_signature equal: "
+        f"{same_sig}; recoveries {recoveries}; VM replacements {replaced}; max|param live - "
+        f"virtual| {diff:.3e}")
+    check(all("unpaired" not in p.values() for p in pairings), "every fault paired on both")
+    check(all(w == {r: 48.0 for r in range(1, 6)} for w in weights), "folded weight conserved")
+    check(same_sig, "live and virtual-clock chaos signatures equal")
+    check(len(recoveries) == 1 and recoveries[0][0] == 4 and recoveries[0][1] != "none",
+          "round 4 resumed from a verified checkpoint")
+    check(replaced and all(old != new for _, old, new in replaced), "revoked silos moved")
+    check(diff <= 1e-5 and live.final_params["w"].is_cuda, "the two drivers' params close")
+    check(driver.cohort == ["c0", "c1", "c2"], "every silo still in the cohort")
+    return {"wall_s": wall, "pairing": {"/".join(map(str, k)): v
+                                        for k, v in pairings[0].items()},
+            "signature_equal": same_sig, "recoveries": recoveries, "replaced": replaced,
+            "max_param_diff": diff}
+
+
 PHASE_S: dict = {}   # seconds each phase of main() took, in order
 
 
@@ -3194,6 +4026,10 @@ def main() -> int:
     encdec_train = timed(phase_encdec_train_step)
     hybrid_train = timed(phase_hybrid_train_step)
     train_reference = timed(phase_train_reference_check)
+    live = timed(phase_live_round)
+    live_proc = timed(phase_live_process_round)
+    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_soak_") as d:
+        soak = timed(phase_chaos_soak, Path(d))
 
     dq = dq_timing["int8"]
     kernels = [{
@@ -3213,7 +4049,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dequant_fold.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:70",
-        "launches": compressed["int8"]["launches"]["dequant_fold"],
+        # The compressed path's int8 run and both live phases' folds.
+        "launches": (compressed["int8"]["launches"]["dequant_fold"]
+                     + live["launches"]["dequant_fold"] + live_proc["launches"]["dequant_fold"]),
         "max_abs_err": dq_err,
         "ms": dq["ms"],
         "plain_ms": dq["plain_ms"],
@@ -3292,7 +4130,8 @@ def main() -> int:
         "hybrid_zoo": hybrid_zoo, "hybrid_train": hybrid_train,
         "train_step": train_step, "trainer": trainer, "lora": lora,
         "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
-        "train_reference": train_reference, "phase_s": PHASE_S,
+        "train_reference": train_reference, "live": live, "live_proc": live_proc,
+        "soak": soak, "phase_s": PHASE_S,
         "seconds": time.monotonic() - t_start,
     }, indent=1))
     say(f"[done] {time.monotonic() - t_start:.1f} s")

@@ -13,8 +13,8 @@ sparsified delta: ``c_msg_train_bytes`` is then the *wire* size, and
 ``c_msg_train_dense_bytes`` keeps the dense fp32 equivalent so reports
 can state the achieved compression ratio.  With a ``schema`` the leg is
 a structured frame and the log carries per-group wire and dense bytes.
-``to_cost_model_sizes`` comes with the port of ``Experiment`` (``ROADMAP.md``
-queue 1, item 9).
+``to_cost_model_sizes`` hands a measured log to the scheduler's cost
+model (Eq. 6), as the live transport does after every round.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Union
 
 from ..checkpoint._msgpack import packb
 from ..checkpoint.serializer import pytree_num_bytes, serialize_pytree
+from ..core.application_model import MessageSizes
 from .compression import (
     CompressionSpec,
     StructuredCompressor,
@@ -122,6 +123,21 @@ def measure_messages(
         c_msg_train_dense_bytes=dense,
         group_wire_bytes=group_wire,
         group_dense_bytes=group_dense,
+    )
+
+
+def to_cost_model_sizes(log: RoundMessageLog) -> MessageSizes:
+    """Bridge real measured sizes into the scheduler's cost model.
+
+    Always the *wire* sizes — with compression enabled the c_msg_train
+    term is the compressed frame, which is what the inter-cloud link
+    actually carries (the dense equivalent stays a reporting-only
+    field)."""
+    return MessageSizes(
+        s_msg_train_gb=log.s_msg_train_bytes / 1e9,
+        s_msg_aggreg_gb=log.s_msg_aggreg_bytes / 1e9,
+        c_msg_train_gb=log.c_msg_train_bytes / 1e9,
+        c_msg_test_gb=log.c_msg_test_bytes / 1e9,
     )
 
 

@@ -76,12 +76,15 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from repro_torch import convert
-    from repro_torch.federated import FLClient, FLServer
+    from repro_torch.federated import (
+        FLClient, FLServer, LiveRoundDriver, ProcessWorkerPool, ThreadWorkerPool)
     from repro_torch.models import fl_models
 
     for fn in (FLServer.__init__, FLClient.__init__, fl_models.init_femnist_cnn,
                fl_models.init_vgg16, fl_models.init_shakespeare_lstm,
-               convert.params_from_numpy, convert.tensor_from_numpy):
+               convert.params_from_numpy, convert.tensor_from_numpy,
+               LiveRoundDriver.__init__, ThreadWorkerPool.__init__,
+               ProcessWorkerPool.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
 
@@ -92,6 +95,15 @@ def test_entry_points_default_to_the_card():
     "repro_torch.kernels.flash_attention",
 ])
 def test_the_training_slice_modules_are_scanned(module):
+    assert module in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.application_model", "repro_torch.core.cloud_model",
+    "repro_torch.core.cost_model", "repro_torch.core.dynamic_scheduler",
+    "repro_torch.federated.chaos", "repro_torch.federated.transport",
+])
+def test_the_live_transport_modules_are_scanned(module):
     assert module in _modules()
 
 
