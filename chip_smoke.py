@@ -133,7 +133,22 @@ or of the JAX package.  In order it:
      from the same weights: one train step each, and one federated LoRA
      round of olmo-1b over 2 silos (adapters within 1e-4, base bit-equal,
      traces equal);
- 19. runs the live transport at the paper's FEMNIST width: the five
+ 19. runs the two-level hierarchy at the paper's FEMNIST width: dyadic
+     silos (no sum rounds) folded through four region partitions, dense and
+     fp16 (``dequant_fold``), with the sequential parent and the sharded one
+     (an all-reduce over an NCCL process group of one), each bit-equal to
+     the flat fold; the structured full-coverage route bit-equal too, int8
+     within 1e-6; one partial add and the parent's fold of three regions
+     timed beside their bounds.  Then ``HierarchicalFLServer`` over the
+     five silos of ``femnist_application()`` in the regions of
+     ``aws_gcp_environment()`` (§5.7), int8, 4 rounds with a deadline, a
+     revocation re-requested in its region and an update carried in its
+     region, against a flat ``AsyncFLServer`` twin (round 1 within 1e-6,
+     every round's fold within 1e-6 of the flat fold of the same updates);
+     2 rounds of a cohort of 4; federated LoRA of olmo-1b through two
+     regions against its flat twin; and ``fedavg_stacked`` over 4 FEMNIST
+     trees (one ``fedavg_reduce`` launch);
+ 20. runs the live transport at the paper's FEMNIST width: the five
      silos of ``femnist_application()`` as ``ThreadWorkerPool`` workers
      behind ``SocketTransport`` on loopback, int8 updates folded by
      ``dequant_fold`` in this process (one launch a folded update), 3
@@ -146,13 +161,13 @@ or of the JAX package.  In order it:
      sizes, round 1 traced (the device's idle share) and replayed in
      process on its recorded arrivals (params within 2e-5, equal
      ``chaos_signature``);
- 20. runs 2 mamba2-130m silos (full width and depth, bf16) as spawned
+ 21. runs 2 mamba2-130m silos (full width and depth, bf16) as spawned
      ``ProcessWorkerPool`` children that build their client and template
      on the card and raise unless their weights are CUDA tensors and both
      SSD kernels launched in them; 2 int8 rounds, one child terminated by
      an eval-phase revocation and respawned; each fold against the plain
      weighted fold of the same decoded deltas;
- 21. runs ``tests/test_chaos.py``'s soak at its toy size with tensors on
+ 22. runs ``tests/test_chaos.py``'s soak at its toy size with tensors on
      the card: five rounds, all seven fault kinds, the live and the
      virtual-clock drivers' signatures, pairing and folded weight.
 For each path every kernel's launch count is set to 0 just before and
@@ -3153,6 +3168,607 @@ def phase_moe_fedavg_rounds():
 
 
 # ---------------------------------------------------------------------------
+# The two-level hierarchy and the stacked reduce
+# ---------------------------------------------------------------------------
+
+HIER_SILOS = 6          # phase_hierarchy_exactness's dyadic silos
+HIER_ROUNDS = 4         # phase_hierarchy_round's rounds
+HIER_DEADLINE_S = 3.0   # its FixedDeadline; femnist_client_3 arrives at 6.0 s in round 3
+# The §5.6 Poisson revocation process of phase_hierarchy_round, its only
+# spot silo femnist_client_1: from this seed the first event lands 1.91 s
+# into the run (0.11 s into round 2, whose silos arrive at 1.0-1.8 s) and
+# the second at 19.7 s, after round 4 (the rounds' horizons are 1.8, 1.8,
+# 6.0 and 1.8 s).
+HIER_REVOCATION = {"k_r": 5.0, "seed": 139}
+HIER_LORA_ROUNDS = 2
+
+
+class _pod_of_one:
+    """An NCCL process group of one process (``init_method="file://..."``)
+    and its 1-D "pod" DeviceMesh, destroyed on exit: the sharded parent's
+    collective on one card.  The group must be gone before the live phases
+    spawn processes."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        self._dir = tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_pg_")
+        dist.init_process_group("nccl", init_method=f"file://{self._dir.name}/pg",
+                                world_size=1, rank=0, device_id=torch.device("cuda", 0))
+        check(dist.get_backend() == "nccl", f"the pod's backend is nccl, got {dist.get_backend()}")
+        return DeviceMesh("cuda", [0], mesh_dim_names=("pod",))
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        self._dir.cleanup()
+        return False
+
+
+def _bit_equal(got, want) -> bool:
+    """Every leaf equal, the sign of a zero too."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+
+    return all(torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _max_abs(got, want) -> float:
+    from repro_torch.utils.tree import tree_leaves
+
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def phase_hierarchy_exactness():
+    """The partition property at the paper's FEMNIST width: HIER_SILOS
+    silos of dyadic trees (integers in [-128, 128) x 2^-6, integer weights
+    1-15; no sum of them rounds) in the CNN's layout (L = 164,187,070),
+    made on the card from seed 0, folded through four partitions (one
+    region, singletons, round-robin 3, [2, 0, 1, 0, 2, 1]), dense and as
+    fp16 updates (``dequant_fold``, scale 1), with the sequential parent
+    and the sharded one (an all-reduce over an NCCL pod of one process):
+    each bit-equal to the flat ``streaming(base=...)`` fold of the same
+    updates.  The structured full-coverage route (``{"all": ""}``) must be
+    bit-equal to the dense hierarchy, int8 within 1e-6 of the flat int8
+    fold.  Then one ``fold_partial`` add and the parent's whole
+    ``fold_partials`` over three regions are timed beside their bounds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.federated import (
+        AggregationEngine,
+        ClientResult,
+        HierarchyCoordinator,
+        InstantSchedule,
+        partition_regions,
+        plan_for,
+    )
+    from repro_torch.federated.agg_engine import _flat_partial_fold
+    from repro_torch.federated.compression import CompressionSpec, compress
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    template = init_femnist_cnn(gen, FemnistConfig(), "cuda")
+
+    def dyadic():
+        return tree_map(lambda t: torch.randint(-128, 128, t.shape, generator=gen, device="cuda",
+                                                dtype=torch.int32).float() * 2.0**-6, template)
+
+    base = dyadic()
+    weights = torch.randint(1, 16, (HIER_SILOS,), generator=gen, device="cuda").tolist()
+    dense = [ClientResult(f"silo{i}", dyadic(), w, 0.0) for i, w in enumerate(weights)]
+    del template
+    plan = plan_for(base)
+    check(plan.total_elems == PAPER_L, f"the CNN's layout holds {PAPER_L} parameters")
+    base_flat = plan.flatten(base)
+
+    def compressed(codec):
+        return [ClientResult(r.client_id, compress(plan.flatten(r.params) - base_flat,
+                                                   CompressionSpec(codec), base_round=0),
+                             r.n_samples, 0.0) for r in dense]
+
+    results = {"dense": dense, "fp16": compressed("fp16"), "int8": compressed("int8")}
+    del base_flat
+
+    def flat(res):
+        agg = AggregationEngine().streaming(base=base, base_round=0)
+        for r in res:
+            agg.add(r.params, r.n_samples)
+        return agg.result()
+
+    want = {codec: flat(res) for codec, res in results.items()}
+    torch.cuda.synchronize()
+    ids = [r.client_id for r in dense]
+    partitions = {"one region": {"r0": ids},
+                  "singletons": {f"r{i}": [cid] for i, cid in enumerate(ids)},
+                  "round-robin 3": partition_regions(ids, 3),
+                  "[2, 0, 1, 0, 2, 1]": {}}
+    for cid, j in zip(ids, [2, 0, 1, 0, 2, 1]):
+        partitions["[2, 0, 1, 0, 2, 1]"].setdefault(f"r{j}", []).append(cid)
+    out = {"routes": [], "weights": weights}
+    wsum = float(sum(weights))
+
+    with _pod_of_one() as mesh:
+        zero_counts()
+        folders = []
+
+        def route(name, codec, sharded, rmap, schema=None):
+            coord = HierarchyCoordinator(rmap, agg_engine=AggregationEngine(), sharded=sharded,
+                                         mesh=mesh if sharded else None, schema=schema)
+            if sharded:
+                folders.append((len(rmap), coord.folder))
+            rep = coord.fold_round(0, results[codec], InstantSchedule(), base_params=base)
+            n = sum(p.n_clients for p in rep.partials)
+            w = sum(p.wsum for p in rep.partials)
+            check(n == HIER_SILOS and w == wsum,
+                  f"{name}: the partials carry every silo once ({n} silos, wsum {w} of {wsum})")
+            return rep
+
+        for pname, rmap in partitions.items():
+            for codec in ("dense", "fp16"):
+                for sharded in (False, True):
+                    rep = route(pname, codec, sharded, rmap)
+                    equal = _bit_equal(rep.params, want[codec])
+                    parent = "sharded" if sharded else "sequential"
+                    say(f"[hierarchy] exactness {pname}, {codec}, {parent} parent: "
+                        f"{len(rep.partials)} partials, bit-equal to the flat fold: {equal}")
+                    check(equal, f"{pname} {codec} {parent}: bit-equal to the flat fold")
+                    out["routes"].append({"partition": pname, "codec": codec, "parent": parent,
+                                          "bit_equal": equal})
+                    if pname == "round-robin 3" and codec == "dense" and not sharded:
+                        partials = rep.partials
+                    del rep
+            rep = route(pname, "dense", False, rmap, schema={"all": ""})
+            equal = _bit_equal(rep.params, want["dense"])
+            say(f"[hierarchy] exactness {pname}, structured full coverage, sequential parent: "
+                f"bit-equal to the dense hierarchy: {equal}")
+            check(equal, f"{pname}: structured full coverage bit-equal to the dense hierarchy")
+            out["routes"].append({"partition": pname, "codec": "structured", "parent": "sequential",
+                                  "bit_equal": equal})
+            del rep
+        rmap = partitions["round-robin 3"]
+        rep = route("round-robin 3", "dense", True, rmap, schema={"all": ""})
+        equal = _bit_equal(rep.params, want["dense"])
+        check(equal, "round-robin 3: structured full coverage, sharded, bit-equal")
+        out["routes"].append({"partition": "round-robin 3", "codec": "structured",
+                              "parent": "sharded", "bit_equal": equal})
+        del rep
+        for sharded in (False, True):
+            rep = route("round-robin 3", "int8", sharded, rmap)
+            err = _max_abs(rep.params, want["int8"])
+            parent = "sharded" if sharded else "sequential"
+            say(f"[hierarchy] exactness round-robin 3, int8, {parent} parent: max|hier - flat| "
+                f"{err:.3e} (tol 1e-6)")
+            check(err <= 1e-6, f"int8 {parent}: within 1e-6 of the flat int8 fold")
+            out["routes"].append({"partition": "round-robin 3", "codec": "int8",
+                                  "parent": parent, "max_abs_err": err})
+            del rep
+        torch.cuda.synchronize()
+        launches = counts()
+        # A parent with one partial folds it in place, as the reference does.
+        n_coll = [f.n_collectives for _, f in folders]
+        backend = dist.get_backend()
+        say(f"[hierarchy] exactness: launches {_nonzero(launches)}; all-reduces per sharded "
+            f"route {n_coll} over backend {backend}")
+        # fp16: 4 partitions x 2 parents; int8: 2 parents; a launch an update.
+        want_launches = dict.fromkeys(KERNELS, 0) | {"dequant_fold": HIER_SILOS * (8 + 2)}
+        check(launches == want_launches, f"hierarchy routes launch {want_launches}")
+        check(all(f.n_collectives == int(r > 1) for r, f in folders),
+              "every sharded route over two or more regions ran one all-reduce")
+        out.update(launches=launches, n_collectives=n_coll, backend=backend)
+
+        # Timing: one partial add, and the parent's fold of three partials.
+        l_pad = partials[0].acc.numel()
+        acc = partials[0].acc.clone()
+        other = partials[1].acc
+        add_ms = statistics.median(cuda_times(lambda: _flat_partial_fold(acc, other), 20))
+        add_bound = 3 * 4 * l_pad / HBM_BYTES_PER_S * 1e3
+        fold_bound = 4 * (len(partials) * l_pad + 2 * PAPER_L) / HBM_BYTES_PER_S * 1e3
+        seq = HierarchyCoordinator(rmap, agg_engine=AggregationEngine())
+        shd = HierarchyCoordinator(rmap, agg_engine=AggregationEngine(), sharded=True, mesh=mesh)
+        fold_ms = {}
+        for name, coord in (("sequential", seq), ("sharded", shd)):
+            for _ in range(2):
+                coord.fold_partials(0, partials, base)
+            fold_ms[name] = quartiles(cuda_times(lambda: coord.fold_partials(0, partials, base), 8))
+        say(f"[time] fold_partial add (L_pad {l_pad:,} fp32): {add_ms:.4f} ms, bound "
+            f"{add_bound:.4f} ms (3 x 4 x L_pad B at 3.35 TB/s), {add_bound / add_ms:.1%}")
+        for name, (q1, q2, q3) in fold_ms.items():
+            say(f"[time] parent fold_partials, {len(partials)} regions, {name}: {q2:.4f} ms "
+                f"({q1:.4f}-{q3:.4f}), bound {fold_bound:.4f} ms (4 x (3 L_pad + 2 L) B), "
+                f"{fold_bound / q2:.1%}")
+        out.update(add_ms=add_ms, add_bound_ms=add_bound, fold_partials_ms=fold_ms,
+                   fold_bound_ms=fold_bound)
+        del acc, other, partials, seq, shd
+    del results, want, dense, base
+    torch.cuda.empty_cache()
+    return out
+
+
+class _RoundDelays:
+    """Per-round ``DeterministicSchedule`` delays (an ``ArrivalSchedule``)."""
+
+    def __init__(self, by_round: dict):
+        self.by_round = by_round
+
+    def round_arrivals(self, round_idx, client_ids):
+        from repro_torch.federated import DeterministicSchedule
+
+        return DeterministicSchedule(self.by_round[round_idx]).round_arrivals(round_idx,
+                                                                              client_ids)
+
+
+class _Drawn:
+    """An ``ArrivalSchedule`` whose arrivals are drawn from ``inner`` once a
+    round for the whole population and served to every caller.  The
+    hierarchy asks its schedule once a region, and a
+    ``RevocationInjector``'s cross-round clock moves on every call: asked
+    region by region, it would revoke other silos than the flat twin's."""
+
+    def __init__(self, inner, population):
+        self.inner, self.population, self.rounds = inner, list(population), {}
+
+    def round_arrivals(self, round_idx, client_ids):
+        if round_idx not in self.rounds:
+            self.rounds[round_idx] = self.inner.round_arrivals(round_idx, self.population)
+        return {cid: self.rounds[round_idx][cid] for cid in client_ids}
+
+
+def _watch_coordinator(coord) -> tuple:
+    """Wrap a coordinator for a run: CUDA events round its parent fold
+    (``fold_partials``) each round, and each round's inputs and params
+    kept (``fold_round``) for a flat replay.  Returns (spans, rounds)."""
+    import torch
+
+    fold_partials, fold_round, spans, rounds = coord.fold_partials, coord.fold_round, [], []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params = fold_partials(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return params
+
+    def kept(round_idx, results, schedule=None, base_params=None):
+        rep = fold_round(round_idx, results, schedule, base_params=base_params)
+        rounds.append((round_idx, list(results), base_params, rep))
+        return rep
+
+    coord.fold_partials, coord.fold_round = timed, kept
+    return spans, rounds
+
+
+def _ratio(got, want) -> float:
+    """max |got - want| / (1e-6 + 1e-6 |want|) over every element: <= 1
+    is within 1e-6 absolute + relative."""
+    return max(((a - b).abs() / (1e-6 + 1e-6 * b.abs())).max().item()
+               for a, b in zip(got, want))
+
+
+def phase_hierarchy_round():
+    """``HierarchicalFLServer`` at the paper's FEMNIST width: the five silos
+    of ``femnist_application()`` (batch 32, AdamW, in process), int8
+    updates, regions of ``aws_gcp_environment()`` (§5.7: AWS us-east-1
+    holds femnist_client_0 and 1, GCP us-central1 2 and 3, GCP us-west1
+    4), the sharded parent on an NCCL pod of one process; HIER_ROUNDS
+    rounds with a ``FixedDeadline`` over per-round ``DeterministicSchedule``
+    delays under a ``RevocationInjector`` (round 2: femnist_client_1
+    revoked and re-requested in its region; round 3: femnist_client_3
+    past the deadline, parked in gcp_us_central1; round 4: folded at its
+    discount).  A flat ``AsyncFLServer`` twin runs the same silos,
+    schedule, deadline and codec.  Then a sequential run of 2 rounds with
+    ``cohort=4, cohort_seed=9``."""
+    import torch
+    from repro_torch.core import aws_gcp_environment
+    from repro_torch.core.events import PartialFolded, RegionClosed
+    from repro_torch.core.revocation import RevocationModel
+    from repro_torch.federated import (
+        AggregationEngine,
+        AsyncFLServer,
+        AsyncRoundEngine,
+        CohortSampler,
+        FixedDeadline,
+        HierarchicalFLServer,
+        RevocationInjector,
+    )
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = FemnistConfig()
+    clients = _femnist_clients(cfg, _femnist_live_silos(), make_optimizer("adamw", 1e-4), "cuda")
+    ids = [c.client_id for c in clients]
+    names = list(aws_gcp_environment().regions)
+    regions = dict(zip(names, (ids[0:2], ids[2:4], ids[4:5])))
+    check(list(regions) == ["aws_us_east_1", "gcp_us_central1", "gcp_us_west1"],
+          f"the AWS/GCP testbed's regions, got {list(regions)}")
+    on_time = {cid: 1.0 + 0.2 * i for i, cid in enumerate(ids)}
+    delays = {r: dict(on_time) for r in range(1, HIER_ROUNDS + 1)}
+    delays[3][ids[3]] = 6.0
+
+    def schedule():
+        return _Drawn(RevocationInjector(_RoundDelays(delays), RevocationModel(**HIER_REVOCATION),
+                                         spot_clients=[ids[1]]), ids)
+
+    params0 = init_femnist_cnn(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    kw = dict(round_deadline=FixedDeadline(t_round_s=HIER_DEADLINE_S), recovery_delay_s=0.5,
+              compression="int8", device="cuda")
+    out = {"regions": regions}
+    # cuDNN's default convolution backward sums in no fixed order, so two
+    # trainings from the same weights differ (round 1 up to 7e-4 apart on
+    # an H100); deterministic algorithms make the twins' silos send the
+    # same updates, and leave the folds to differ.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with _pod_of_one() as mesh:
+        runs = {}
+        for name in ("hierarchy", "flat"):
+            seen = {}
+
+            def hook(r, params, seen=seen, name=name):
+                if r == 1:
+                    seen["round1"] = [t.clone() for t in tree_leaves(params)]
+                if name == "hierarchy" and r == 3:
+                    seen["carry"] = [(rid, e.client_id)
+                                     for rid, e in seen["coordinator"].pending_carryover()]
+                return None
+
+            if name == "hierarchy":
+                server = HierarchicalFLServer(clients, params0, schedule=schedule(),
+                                              regions=regions, sharded=True, mesh=mesh,
+                                              post_round_hook=hook, **kw)
+                seen["coordinator"] = server.coordinator
+                spans, kept = _watch_coordinator(server.coordinator)
+            else:
+                server = AsyncFLServer(clients, params0, schedule=schedule(),
+                                       post_round_hook=hook, **kw)
+            zero_counts()
+            t0 = time.monotonic()
+            run = server.run(HIER_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            runs[name] = {"server": server, "run": run, "launches": counts(), "wall_s": wall,
+                          **seen}
+        hier, flat = runs["hierarchy"], runs["flat"]
+        hs = hier["server"]
+        rows = []
+        for rec, rep, (start, end) in zip(hier["run"].rounds, hs.fold_reports, spans):
+            wire = sum(p.wire_bytes for p in rep.partials)
+            row = {"round": rec.round_idx, "loss": rec.metrics["loss"],
+                   "train_s": rec.train_time_s, "fold_s": rec.agg_time_s,
+                   "eval_s": rec.eval_time_s,
+                   "region_fold_s": {rid: r.busy_s for rid, r in rep.region_reports.items()},
+                   "parent_fold_s": rep.parent_fold_s,
+                   "parent_fold_device_ms": start.elapsed_time(end),
+                   "partial_wire_bytes": wire, "rerequested": rep.rerequested,
+                   "carried_over": rep.carried_over, "carried_in": rep.carried_in}
+            rows.append(row)
+            say(f"[hierarchy] round {rec.round_idx}: loss {rec.metrics['loss']:.4f}; train "
+                f"{rec.train_time_s:.3f} s, fold {rec.agg_time_s:.4f} s, eval "
+                f"{rec.eval_time_s:.3f} s; regions' fold spans "
+                f"{ {rid: round(s, 4) for rid, s in row['region_fold_s'].items()} } s; parent "
+                f"fold {rep.parent_fold_s * 1e3:.3f} ms host, {row['parent_fold_device_ms']:.3f} "
+                f"ms device; partials {wire:,} B ({len(rep.partials)} x fp32 acc); re-requested "
+                f"{rep.rerequested}, carried over {rep.carried_over}, in {rep.carried_in}")
+        for rec in flat["run"].rounds:
+            say(f"[hierarchy] flat twin round {rec.round_idx}: loss {rec.metrics['loss']:.4f}; "
+                f"train {rec.train_time_s:.3f} s, fold {rec.agg_time_s:.4f} s, eval "
+                f"{rec.eval_time_s:.3f} s")
+        r1 = _ratio(hier["round1"], flat["round1"])
+        final_rel = rel_l2(torch.cat([t.reshape(-1) for t in tree_leaves(hier["run"].final_params)]),
+                           torch.cat([t.reshape(-1) for t in tree_leaves(flat["run"].final_params)]))
+        losses = [(h.metrics["loss"], f.metrics["loss"])
+                  for h, f in zip(hier["run"].rounds, flat["run"].rounds)]
+        say(f"[hierarchy] against the flat twin: round 1 max |dw| / (1e-6 + 1e-6 |w|) {r1:.3f} "
+            f"(<= 1); final params relative L2 {final_rel:.3e}; losses {losses}; "
+            f"wall {hier['wall_s']:.1f} s against {flat['wall_s']:.1f} s; launches "
+            f"{_nonzero(hier['launches'])} against {_nonzero(flat['launches'])}")
+        check(r1 <= 1.0, "round 1's params within 1e-6 abs + rel of the flat twin")
+        # Every round's fold replayed through a flat AsyncRoundEngine on the
+        # same encoded updates, base and arrivals (its own carry buffer):
+        # the hierarchy's property, apart from the training's amplification
+        # of rounding that moves the twin from round 2 on.
+        shadow = AsyncRoundEngine(AggregationEngine(), deadline=kw["round_deadline"],
+                                  recovery_delay_s=kw["recovery_delay_s"])
+        replay_schedule = schedule()
+        fold_ratios = []
+        for round_idx, res, base, rep in kept:
+            srep = shadow.fold_round(round_idx, res, replay_schedule, base_params=base)
+            fold_ratios.append(_ratio(tree_leaves(rep.params), tree_leaves(srep.params)))
+            check((srep.rerequested, srep.carried_over, srep.carried_in)
+                  == (rep.rerequested, rep.carried_over, rep.carried_in),
+                  f"round {round_idx}: the flat replay re-requests and carries the same silos")
+            del srep
+        del kept
+        say(f"[hierarchy] each round's fold against the flat fold of the same updates: max "
+            f"|dw| / (1e-6 + 1e-6 |w|) {[round(x, 4) for x in fold_ratios]} (<= 1)")
+        check(max(fold_ratios) <= 1.0, "every round within 1e-6 abs + rel of the flat fold")
+        check(hier["launches"]["dequant_fold"] == flat["launches"]["dequant_fold"] > 0,
+              "dequant_fold launches equal to the twin's")
+        check(hier["launches"] == flat["launches"], "the same launches as the twin")
+        closed = [(e.round_idx, e.region) for e in hs.bus.events_of(RegionClosed)]
+        folded = [(e.round_idx, e.region) for e in hs.bus.events_of(PartialFolded)]
+        want_events = [(r, rid) for r in range(1, HIER_ROUNDS + 1) for rid in regions]
+        check(closed == want_events and folded == want_events,
+              "RegionClosed and PartialFolded in region order every round")
+        reps = hs.fold_reports
+        check(reps[1].rerequested == [ids[1]]
+              and reps[1].region_reports["aws_us_east_1"].rerequested == [ids[1]]
+              and all(not r.rerequested for i, r in enumerate(reps) if i != 1),
+              "round 2 re-requests femnist_client_1 in aws_us_east_1, and only then")
+        check(hier["carry"] == [("gcp_us_central1", ids[3])],
+              f"femnist_client_3 parked in gcp_us_central1 after round 3, got {hier['carry']}")
+        check(reps[2].carried_over == [ids[3]] and reps[3].carried_in == [ids[3]]
+              and reps[3].region_reports["gcp_us_central1"].carried_in == [ids[3]],
+              "round 4 folds the parked update in gcp_us_central1")
+        fr = runs["flat"]["server"].fold_reports
+        check([r.rerequested for r in fr] == [r.rerequested for r in reps]
+              and [r.carried_over for r in fr] == [r.carried_over for r in reps]
+              and [r.carried_in for r in fr] == [r.carried_in for r in reps],
+              "the twin re-requests and carries the same silos")
+        folder = hs.coordinator.folder
+        check(folder.n_collectives == HIER_ROUNDS, f"one all-reduce a round, got "
+              f"{folder.n_collectives}")
+        check(all(t.is_cuda for t in tree_leaves(hier["run"].final_params)),
+              "every parameter on cuda")
+        out.update(rounds=rows, round1_ratio=r1, fold_ratios=fold_ratios,
+                   final_rel_l2=final_rel, losses=losses,
+                   launches=hier["launches"], twin_launches=flat["launches"],
+                   wall_s=hier["wall_s"], twin_wall_s=flat["wall_s"],
+                   n_collectives=folder.n_collectives,
+                   twin_rounds=[{"round": r.round_idx, "train_s": r.train_time_s,
+                                 "fold_s": r.agg_time_s, "eval_s": r.eval_time_s}
+                                for r in flat["run"].rounds])
+        del runs, hier, flat, hs, server, spans, shadow
+    torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+
+    sampler = CohortSampler(size=4, seed=9)
+    server = HierarchicalFLServer(clients, params0, regions=regions, cohort=4, cohort_seed=9,
+                                  compression="int8", device="cuda")
+    zero_counts()
+    server.run(2)
+    cohort_launches = counts()
+    folded = [sorted(rep.fold_times) for rep in server.fold_reports]
+    want = [sorted(sampler.sample(r, ids)) for r in (1, 2)]
+    say(f"[hierarchy] cohort=4, cohort_seed=9: folded {folded}; population after "
+        f"{[c.client_id for c in server.clients]}; launches {_nonzero(cohort_launches)}")
+    check(folded == want, f"each round folds CohortSampler(size=4, seed=9)'s cohort {want}")
+    check([c.client_id for c in server.clients] == ids, "the population is restored")
+    check(cohort_launches["dequant_fold"] == 8, "one dequant_fold a cohort silo a round")
+    out.update(cohort_folded=folded, cohort_launches=cohort_launches)
+    del server, clients, params0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hierarchy_lora():
+    """Federated LoRA through the hierarchy: olmo-1b at full width and
+    LORA_LAYERS of its 16 layers (``_lora_setup``, as
+    ``phase_lora_rounds``), LORA_SILOS silos in two regions, int8 adapter
+    deltas, HIER_LORA_ROUNDS rounds, the LoRA schema, the sequential
+    parent; a flat ``AsyncFLServer`` twin.  The frozen base must come back
+    bit-equal every round, the adapters within 1e-6 abs + rel of the twin
+    after round 1, the silos' adapter frames as many bytes as the twin's,
+    ``dequant_fold`` launched as often as in the twin, and the flash
+    kernels as a round's training and evaluation on the card need."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_silos
+    from repro_torch.federated import AsyncFLServer, HierarchicalFLServer
+    from repro_torch.launch.steps import make_optimizer_for
+    from repro_torch.models.fl_models import lora_adapter_schema
+    from repro_torch.utils.tree import keystr, tree_flatten_with_path
+
+    cfg = get_config("olmo-1b").with_overrides(n_layers=LORA_LAYERS).with_lora(2)
+    silos = make_lm_silos(LORA_SILOS, cfg.vocab_size, TRAIN_S, [(4, 2)] * LORA_SILOS, seed=0)
+    _, params0, clients = _lora_setup(cfg, "cuda", 0, 1, silos, make_optimizer_for)
+    leaves0 = [(keystr(p), t.clone()) for p, t in tree_flatten_with_path(params0)[0]]
+    ids = [c.client_id for c in clients]
+    regions = {"region_a": ids[:2], "region_b": ids[2:]}
+    schema = lora_adapter_schema()
+    L = cfg.n_layers
+    per_round = {"flash_attention": LORA_SILOS * (2 + 1) * L,
+                 "flash_attention_bwd": LORA_SILOS * 2 * L, "dequant_fold": LORA_SILOS}
+    runs = {}
+    for name in ("hierarchy", "flat"):
+        adapters = {}
+
+        def hook(r, params, adapters=adapters, name=name):
+            for (k, t0), (p, t) in zip(leaves0, tree_flatten_with_path(params)[0]):
+                check(keystr(p) == k, "leaf order")
+                if ".lora_" not in k:
+                    check(torch.equal(t, t0), f"{name} round {r}: base leaf {k} bit-equal")
+                elif r == 1:
+                    adapters[k] = t.clone()
+            return None
+
+        cls = HierarchicalFLServer if name == "hierarchy" else AsyncFLServer
+        extra = {"regions": regions} if name == "hierarchy" else {}
+        server = cls(clients, params0, schema=schema, compression="int8",
+                     post_round_hook=hook, device="cuda", **extra)
+        zero_counts()
+        t0 = time.monotonic()
+        run = server.run(HIER_LORA_ROUNDS)
+        torch.cuda.synchronize()
+        runs[name] = {"server": server, "run": run, "launches": counts(),
+                      "wall_s": time.monotonic() - t0, "adapters": adapters}
+    hier, flat = runs["hierarchy"], runs["flat"]
+    worst = max(((hier["adapters"][k] - flat["adapters"][k]).abs()
+                 / (1e-6 + 1e-6 * flat["adapters"][k].abs())).max().item()
+                for k in flat["adapters"])
+    parent_bytes = sum(p.wire_bytes for rep in hier["server"].fold_reports for p in rep.partials)
+    silo_wire = hier["server"].agg_engine.stats.total_wire_bytes - parent_bytes
+    twin_wire = flat["server"].agg_engine.stats.total_wire_bytes
+    want_launches = dict.fromkeys(KERNELS, 0) | {
+        k: n * HIER_LORA_ROUNDS for k, n in per_round.items()}
+    for rec, rep in zip(hier["run"].rounds, hier["server"].fold_reports):
+        say(f"[hierarchy] lora round {rec.round_idx}: loss {rec.metrics['loss']:.4f}; train "
+            f"{rec.train_time_s:.3f} s, fold {rec.agg_time_s:.4f} s (parent "
+            f"{rep.parent_fold_s * 1e3:.3f} ms), eval {rec.eval_time_s:.3f} s; partials "
+            f"{sum(p.wire_bytes for p in rep.partials):,} B")
+    say(f"[hierarchy] lora against the flat twin: adapters after round 1 max |da| / (1e-6 + "
+        f"1e-6 |a|) {worst:.3f} (<= 1); silos' adapter frames {silo_wire:,} B against "
+        f"{twin_wire:,} B; launches {_nonzero(hier['launches'])} against "
+        f"{_nonzero(flat['launches'])}; wall {hier['wall_s']:.1f} s against {flat['wall_s']:.1f} s")
+    check(worst <= 1.0, "adapters within 1e-6 abs + rel of the flat twin after round 1")
+    check(silo_wire == twin_wire > 0, "the silos' adapter wire bytes equal the twin's")
+    check(hier["launches"] == flat["launches"] == want_launches,
+          f"hierarchy and twin launch {want_launches}")
+    out = {"adapter_ratio": worst, "silo_wire_bytes": silo_wire, "twin_wire_bytes": twin_wire,
+           "launches": hier["launches"], "twin_launches": flat["launches"],
+           "wall_s": hier["wall_s"], "twin_wall_s": flat["wall_s"],
+           "losses": [(h.metrics["loss"], f.metrics["loss"])
+                      for h, f in zip(hier["run"].rounds, flat["run"].rounds)]}
+    del runs, hier, flat, params0, clients, leaves0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stacked_reduce():
+    """``fedavg_stacked`` over a stack of 4 FEMNIST trees at the paper's
+    width (fp32, leaves with a leading axis of 4: 4 x 656.7 MB): one
+    ``fedavg_reduce`` launch over the engine's padded (4, L) layout, each
+    leaf within 2e-5 of the plain weighted mean of the same stack."""
+    import torch
+    from repro_torch.federated import fedavg_stacked
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = FemnistConfig()
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in range(4)]
+    stacked = tree_map(lambda *ts: torch.stack(ts),
+                       *[init_femnist_cnn(g, cfg, "cuda") for g in gens])
+    w = torch.tensor([796.0, 1050.0, 912.0, 860.0], device="cuda")
+    zero_counts()
+    t0 = time.monotonic()
+    got = fedavg_stacked(stacked, w)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counts()
+    wn = w / w.sum()
+    err = max((g - (s * wn.view(-1, *[1] * (s.dim() - 1))).sum(0)).abs().max().item()
+              for g, s in zip(tree_leaves(got), tree_leaves(stacked)))
+    n = sum(t[0].numel() for t in tree_leaves(stacked))
+    say(f"[stacked] fedavg_stacked over 4 FEMNIST trees (L = {n:,}): {wall * 1e3:.1f} ms "
+        f"host with the (4, L) copy; max|stacked - plain| {err:.3e} (tol 2e-5); launches "
+        f"{_nonzero(launches)}")
+    check(n == PAPER_L, "the paper's FEMNIST width")
+    check(err <= 2e-5, "fedavg_stacked within 2e-5 of the plain weighted mean")
+    check(launches == dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": 1},
+          "exactly one fedavg_reduce launch")
+    del stacked, got
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # The live transport and the chaos harness
 # ---------------------------------------------------------------------------
 
@@ -4026,6 +4642,11 @@ def main() -> int:
     encdec_train = timed(phase_encdec_train_step)
     hybrid_train = timed(phase_hybrid_train_step)
     train_reference = timed(phase_train_reference_check)
+    # The hierarchy's NCCL pods are destroyed before the live phases spawn.
+    hier_exact = timed(phase_hierarchy_exactness)
+    hier_round = timed(phase_hierarchy_round)
+    hier_lora = timed(phase_hierarchy_lora)
+    stacked = timed(phase_stacked_reduce)
     live = timed(phase_live_round)
     live_proc = timed(phase_live_process_round)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_soak_") as d:
@@ -4037,7 +4658,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:27",
-        "launches": path["launches"],
+        # The barrier path's rounds and the stacked reduce.
+        "launches": path["launches"] + stacked["launches"]["fedavg_reduce"],
         "max_abs_err": main_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -4049,8 +4671,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dequant_fold.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:70",
-        # The compressed path's int8 run and both live phases' folds.
+        # The compressed path's int8 run, the hierarchy's routes and rounds,
+        # and both live phases' folds.
         "launches": (compressed["int8"]["launches"]["dequant_fold"]
+                     + hier_exact["launches"]["dequant_fold"]
+                     + hier_round["launches"]["dequant_fold"]
+                     + hier_round["cohort_launches"]["dequant_fold"]
+                     + hier_lora["launches"]["dequant_fold"]
                      + live["launches"]["dequant_fold"] + live_proc["launches"]["dequant_fold"]),
         "max_abs_err": dq_err,
         "ms": dq["ms"],
@@ -4130,7 +4757,9 @@ def main() -> int:
         "hybrid_zoo": hybrid_zoo, "hybrid_train": hybrid_train,
         "train_step": train_step, "trainer": trainer, "lora": lora,
         "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
-        "train_reference": train_reference, "live": live, "live_proc": live_proc,
+        "train_reference": train_reference, "hierarchy_exactness": hier_exact,
+        "hierarchy_round": hier_round, "hierarchy_lora": hier_lora, "stacked_reduce": stacked,
+        "live": live, "live_proc": live_proc,
         "soak": soak, "phase_s": PHASE_S,
         "seconds": time.monotonic() - t_start,
     }, indent=1))

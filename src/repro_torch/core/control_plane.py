@@ -1,16 +1,19 @@
-"""The control plane's shared §4.4 straggler policy.
+"""The control plane's shared §4.4 straggler policy and hierarchy face.
 
-The port's copy of ``StragglerTracker`` from ``repro/core/control_plane.py``:
-the same streak rule, so a deadline round driven by either package
-escalates the same silo in the same round.  The rest of the control plane
-(the module Protocols, ``ControlPlane`` and the ``Experiment`` builder)
-comes with the port's builder, ``ROADMAP.md`` queue 1, item 9.
+The port's copies of ``StragglerTracker`` and the ``HierarchyAPI``
+Protocol from ``repro/core/control_plane.py``: the same streak rule, so a
+deadline round driven by either package escalates the same silo in the
+same round, and the same surface for the two-level aggregation hierarchy
+(:class:`~repro_torch.federated.hierarchy.HierarchyCoordinator` is its
+concrete form).  The rest of the control plane (the other module
+Protocols, ``ControlPlane`` and ``Experiment``) comes with ``ROADMAP.md``
+queue 1, item 9.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
-__all__ = ["StragglerTracker"]
+__all__ = ["HierarchyAPI", "StragglerTracker"]
 
 
 class StragglerTracker:
@@ -44,3 +47,33 @@ class StragglerTracker:
 
     def streak_of(self, task: str) -> int:
         return self._streak.get(task, 0)
+
+
+@runtime_checkable
+class HierarchyAPI(Protocol):
+    """Two-level aggregation: regional cohort folds composed via partial
+    sums (see :mod:`repro_torch.federated.hierarchy` for the concrete
+    coordinator and the numerical-equivalence contract)."""
+
+    @property
+    def region_ids(self) -> List[str]: ...
+
+    def cohort_for(
+        self, round_idx: int, client_ids: Sequence[str]
+    ) -> List[str]: ...
+
+    def fold_partials(
+        self,
+        round_idx: int,
+        partials: Sequence[Any],
+        base_params: Any,
+        now_s: float = ...,
+    ) -> Any: ...
+
+    def fold_round(
+        self,
+        round_idx: int,
+        results: Sequence[Any],
+        schedule: Any = ...,
+        base_params: Any = ...,
+    ) -> Any: ...

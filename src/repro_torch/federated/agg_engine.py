@@ -1,8 +1,9 @@
 """Fused FedAvg aggregation engine — the server's per-round hot path.
 
-The port of ``repro/federated/agg_engine.py`` but for partial sums.  At cross-silo model sizes the FedAvg reduce is a pure
-memory-bound stream, so the engine's job is to touch every client byte
-once per round.  The barrier round (``aggregate``):
+The port of ``repro/federated/agg_engine.py`` but for
+``make_measured_aggreg_fn``.  At cross-silo model sizes the FedAvg
+reduce is a pure memory-bound stream, so the engine's job is to touch
+every client byte once per round.  The barrier round (``aggregate``):
 
   flatten-once — each client tree is raveled through a cached
       :class:`RavelPlan` (leaf order, shapes and dtypes computed once per
@@ -19,7 +20,8 @@ rounded up to a multiple of ``BLOCK`` = 8192, so every row starts
 tail of each row is never written or read.  (At the paper's FEMNIST
 width ``L % 4 == 2``: a contiguous ``(N, L)`` buffer would misalign
 every odd row.)  A chunked mode (``reduce_flat(..., chunk_elems=...)``)
-reduces column blocks one at a time.
+reduces column blocks one at a time.  ``fused_stacked_tree_reduce``
+reduces a tree whose leaves carry a leading client axis the same way.
 
 The async round (``streaming``) folds clients one at a time into a
 :class:`StreamingAggregator`: O(L) accumulator memory, never an
@@ -33,9 +35,13 @@ Structured updates (``streaming(schema=...)``) name parameter groups of
 one model (:class:`UpdateSchema`); a :class:`StructuredStreamingAggregator`
 keeps one padded fp32 accumulator per group, so a federated-LoRA round
 folds only the adapters' elements (int8 and fp16 group deltas through
-``dequant_fold``) and the frozen base comes back untouched.  Partial sums
-(``export_partial``/``fold_partial``, ``ROADMAP.md`` queue 1, item 13,
-the hierarchy) raise ``NotImplementedError``, structured ones too.
+``dequant_fold``) and the frozen base comes back untouched.
+
+Partial sums (``export_partial``/``fold_partial``) carry a fold between
+the levels of the aggregation hierarchy: a region exports its padded
+accumulator, weight total and client count as a :class:`PartialSum`
+(per group, a :class:`StructuredPartialSum`), and a parent adds it into
+its own accumulator in place.
 """
 from __future__ import annotations
 
@@ -616,6 +622,38 @@ class AggregationEngine:
         return StreamingAggregator(self, base=base, base_round=base_round)
 
 
+def fused_stacked_tree_reduce(stacked: Any, weights: Any) -> Any:
+    """FedAvg over a tree whose leaves carry a leading client (or pod
+    replica) axis.
+
+    Every leaf's rows go into one fp32 ``(N, L)`` buffer in the engine's
+    padded layout (rows ``BLOCK``-aligned, as
+    :meth:`RavelPlan.flatten_stack` lays them out) and one
+    ``fedavg_reduce`` call reduces it: the kernel on a CUDA stack, its
+    plain version on a CPU one.  ``weights`` (N,) need not be normalized.
+    Each leaf comes back in its own dtype."""
+    leaves, treedef = tree_flatten(stacked)
+    if not leaves:
+        return stacked
+    n = leaves[0].shape[0]
+    sizes = [int(np.prod(leaf.shape[1:])) for leaf in leaves]
+    total = sum(sizes)
+    buf = torch.empty((n, -(-total // BLOCK) * BLOCK), dtype=torch.float32,
+                      device=leaves[0].device)
+    off = 0
+    for leaf, size in zip(leaves, sizes):
+        buf[:, off:off + size].copy_(leaf.reshape(n, size))
+        off += size
+    red = fedavg_reduce(buf[:, :total],
+                        torch.as_tensor(weights).to(buf.device, torch.float32))
+    outs = []
+    off = 0
+    for leaf, size in zip(leaves, sizes):
+        outs.append(red[off:off + size].reshape(leaf.shape[1:]).to(leaf.dtype))
+        off += size
+    return tree_unflatten(treedef, outs)
+
+
 # ---------------------------------------------------------------------------
 # Carry-over and staleness
 # ---------------------------------------------------------------------------
@@ -782,7 +820,84 @@ def _fold_compressed_into(acc: torch.Tensor, update: CompressedUpdate, w: float,
     raise ValueError(f"unknown compressed codec {update.codec!r}")
 
 
-_PARTIAL = "partial sums: ROADMAP.md queue 1, item 13 (hierarchy)"
+def _flat_partial_fold(acc: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """``acc += other`` in place — fold a regional partial accumulator in
+    (the reference's donated add outside any Pallas kernel)."""
+    return acc.add_(other)
+
+
+def _as_partial_acc(acc: Any, like: torch.Tensor) -> torch.Tensor:
+    """A partial's accumulator as fp32 on ``like``'s device, converted
+    explicitly when it lives elsewhere or in another dtype (the
+    reference's ``jnp.asarray(acc, jnp.float32)``)."""
+    return torch.as_tensor(acc).to(device=like.device, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Partial sums (hierarchical aggregation)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PartialSum:
+    """One aggregator's exported partial fold — the hierarchy wire unit.
+
+    ``acc`` is the BLOCK-padded fp32 delta accumulator (the exact buffer
+    a flat-mode :class:`StreamingAggregator` holds: ``sum_i w_i *
+    (update_i - base)``, zero-padded to the BLOCK multiple), so a parent
+    folds it with one elementwise add and regional / parent results
+    compose to the same weighted average the flat fold computes.
+    ``wsum`` / ``n_clients`` are the region's raw weight total and client
+    count; ``plan_signature`` pins the model structure and ``base_round``
+    the global weights the deltas were taken against —
+    :meth:`StreamingAggregator.fold_partial` validates both, because a
+    partial folded against another structure or base is silent
+    corruption."""
+
+    acc: Any
+    wsum: float
+    n_clients: int
+    plan_signature: str
+    base_round: Optional[int] = None
+    region_id: str = ""
+
+    @property
+    def wire_bytes(self) -> int:
+        """Bytes a parent link carries for this partial (the fp32 acc)."""
+        return _leaf_nbytes(self.acc)
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuredPartialSum:
+    """A structured aggregator's exported fold: one PartialSum per group.
+
+    Groups no silo in the region contributed to are *omitted* — absent
+    silos contribute no weight to a group, and that has to survive the
+    hierarchy hop (a zero-accumulator partial with nonzero wsum would
+    drag the group toward the base).  ``schema_signature`` pins the
+    exact partition; each group's inner :class:`PartialSum` carries its
+    own group-plan signature, and the parent validates both."""
+
+    groups: Tuple[Tuple[str, PartialSum], ...]
+    schema_signature: str
+    n_clients: int
+    base_round: Optional[int] = None
+    region_id: str = ""
+
+    @property
+    def wire_bytes(self) -> int:
+        """Bytes a parent link carries (sum of the per-group fp32 accs)."""
+        return sum(p.wire_bytes for _, p in self.groups)
+
+    @property
+    def wsum(self) -> float:
+        """Round-weight proxy for bus/event accounting: the largest
+        per-group weight total (each group normalizes independently, so
+        there is no single scalar — the max is what a fully-present silo
+        cohort contributed)."""
+        return max((p.wsum for _, p in self.groups), default=0.0)
+
+    def group_wsums(self) -> Dict[str, float]:
+        return {n: p.wsum for n, p in self.groups}
 
 
 class StreamingAggregator:
@@ -1039,11 +1154,84 @@ class StreamingAggregator:
             folded.append((entry, w_eff))
         return folded
 
-    def export_partial(self, region_id: str = "") -> Any:
-        raise NotImplementedError(_PARTIAL)
+    # -- hierarchy: partial-sum export / fold -------------------------------
+    def export_partial(self, region_id: str = "") -> PartialSum:
+        """Consume the fold as a :class:`PartialSum` instead of params.
 
-    def fold_partial(self, partial: Any, block: bool = False) -> None:
-        raise NotImplementedError(_PARTIAL)
+        The regional half of the hierarchy: the padded accumulator,
+        weight total, and client count leave as one composable unit (the
+        base is NOT applied — the parent holds the same base and applies
+        it once at finalize).  Flat/delta mode only: partial sums
+        compose only against a shared base.  Like :meth:`result`, the
+        per-fold state is consumed."""
+        if self._plan is None or self._base_flat is None:
+            raise ValueError(
+                "export_partial() requires flat/delta mode: partial sums "
+                "compose only against a shared base — construct the "
+                "aggregator with streaming(base=global_params)"
+            )
+        if self.n_clients == 0:
+            raise ValueError("no clients have been added")
+        partial = PartialSum(
+            acc=self._ensure_flat_acc(),
+            wsum=self._wsum,
+            n_clients=self.n_clients,
+            plan_signature=self._plan.signature,
+            base_round=self.base_round,
+            region_id=region_id,
+        )
+        self._reset()
+        if self._engine is not None:
+            self._engine.stats.n_calls += 1
+        return partial
+
+    def fold_partial(self, partial: PartialSum, block: bool = False) -> None:
+        """Fold a regional :class:`PartialSum` into this accumulator.
+
+        One in-place elementwise add over the padded fp32 buffers —
+        weighted partial sums compose associatively, so a parent folding
+        R regional partials computes exactly the flat engine's
+        ``sum_i w_i * (update_i - base)`` over all N clients.  The
+        partial's plan signature and base-round tag must match this
+        aggregator's (folding a partial taken against another structure
+        or base is silent corruption)."""
+        if self._plan is None or self._base_flat is None:
+            raise ValueError(
+                "fold_partial() requires flat/delta mode: construct the "
+                "aggregator with streaming(base=global_params)"
+            )
+        if partial.n_clients < 1:
+            raise ValueError("a partial sum must carry at least one client")
+        if partial.wsum < 0:
+            raise ValueError("partial weight total must be non-negative")
+        if partial.plan_signature != self._plan.signature:
+            raise StructureMismatchError(
+                f"partial sum from region {partial.region_id!r} was taken "
+                f"against plan {partial.plan_signature}, but this "
+                f"aggregator's plan is {self._plan.signature}",
+                client_id=partial.region_id or None,
+            )
+        if partial.base_round != self.base_round:
+            raise ValueError(
+                f"partial sum from region {partial.region_id!r} was "
+                f"accumulated against base round {partial.base_round}, but "
+                f"the aggregator's base is round {self.base_round}"
+            )
+        acc = self._ensure_flat_acc()
+        other = _as_partial_acc(partial.acc, acc)
+        if other.shape != acc.shape:
+            raise ValueError(
+                f"partial accumulator has shape {tuple(other.shape)}; the "
+                f"parent's padded accumulator is {tuple(acc.shape)}"
+            )
+        self._acc_flat = _flat_partial_fold(acc, other)
+        if block:
+            self._sync()
+        self._wsum += float(partial.wsum)
+        self.n_clients += int(partial.n_clients)
+        if self._engine is not None:
+            nbytes = _leaf_nbytes(other)
+            self._engine.stats.record(nbytes, nbytes)
 
     def result(self) -> Any:
         if self._acc is None and self._acc_flat is None:
@@ -1311,11 +1499,90 @@ class StructuredStreamingAggregator:
             folded.append((entry, w_eff))
         return folded
 
-    def export_partial(self, region_id: str = "") -> Any:
-        raise NotImplementedError(f"structured {_PARTIAL}")
+    # -- hierarchy: per-group partial export / fold --------------------------
+    def export_partial(self, region_id: str = "") -> StructuredPartialSum:
+        """Consume the fold as one :class:`PartialSum` per present group.
 
-    def fold_partial(self, partial: Any, block: bool = False) -> None:
-        raise NotImplementedError(f"structured {_PARTIAL}")
+        Groups no client contributed to are omitted entirely — absent
+        silos contribute no weight, and the parent must see that."""
+        if self.n_clients == 0:
+            raise ValueError("no clients have been added")
+        groups: List[Tuple[str, PartialSum]] = []
+        for name, gp in self._schema.groups:
+            if self._counts[name] == 0:
+                continue
+            groups.append((name, PartialSum(
+                acc=self._ensure_acc(name),
+                wsum=self._wsums[name],
+                n_clients=self._counts[name],
+                plan_signature=gp.signature,
+                base_round=self.base_round,
+                region_id=region_id,
+            )))
+        partial = StructuredPartialSum(
+            groups=tuple(groups),
+            schema_signature=self._schema.signature,
+            n_clients=self.n_clients,
+            base_round=self.base_round,
+            region_id=region_id,
+        )
+        self._reset()
+        if self._engine is not None:
+            self._engine.stats.n_calls += 1
+        return partial
+
+    def fold_partial(self, partial: StructuredPartialSum, block: bool = False) -> None:
+        """Fold a regional :class:`StructuredPartialSum` in, per group."""
+        if partial.schema_signature != self._schema.signature:
+            raise StructureMismatchError(
+                f"structured partial from region {partial.region_id!r} was "
+                f"taken under schema {partial.schema_signature}, but this "
+                f"aggregator's schema is {self._schema.signature}",
+                client_id=partial.region_id or None,
+            )
+        if partial.base_round != self.base_round:
+            raise ValueError(
+                f"structured partial from region {partial.region_id!r} was "
+                f"accumulated against base round {partial.base_round}, but "
+                f"the aggregator's base is round {self.base_round}"
+            )
+        if partial.n_clients < 1:
+            raise ValueError("a partial sum must carry at least one client")
+        last: Optional[torch.Tensor] = None
+        total_bytes = 0
+        for name, p in partial.groups:
+            if name not in self._wsums:
+                raise ValueError(
+                    f"structured partial carries unknown group {name!r}"
+                )
+            gp = self._schema.group(name)
+            if p.plan_signature != gp.signature:
+                raise StructureMismatchError(
+                    f"group {name!r} partial was taken against plan "
+                    f"{p.plan_signature}, but this aggregator's group plan "
+                    f"is {gp.signature}",
+                    client_id=partial.region_id or None,
+                )
+            if p.wsum < 0:
+                raise ValueError("partial weight total must be non-negative")
+            acc = self._ensure_acc(name)
+            other = _as_partial_acc(p.acc, acc)
+            if other.shape != acc.shape:
+                raise ValueError(
+                    f"group {name!r} partial accumulator has shape "
+                    f"{tuple(other.shape)}; the parent's is {tuple(acc.shape)}"
+                )
+            self._accs[name] = last = _flat_partial_fold(acc, other)
+            self._wsums[name] += float(p.wsum)
+            self._counts[name] += int(p.n_clients)
+            total_bytes += _leaf_nbytes(other)
+        if block and last is not None:
+            from .client import synchronize
+
+            synchronize(last.device)
+        self.n_clients += int(partial.n_clients)
+        if self._engine is not None:
+            self._engine.stats.record(total_bytes, total_bytes)
 
     def result(self) -> Any:
         """Finalize, leaf by leaf: each covered leaf's numerator is the sum

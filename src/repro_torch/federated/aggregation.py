@@ -8,11 +8,11 @@ mean of client weights.
   `agg_engine.AggregationEngine` — what `FLServer` calls each round:
       flatten once into an (N, L) buffer, reduce it with the
       `fedavg_reduce` kernel (plain version on the CPU).
+  `fedavg_stacked` (below)       — the same reduce over a replica stack
+      (leaves with a leading client axis); wraps
+      `agg_engine.fused_stacked_tree_reduce`.
   `fedavg` (below)               — the per-leaf oracle, kept ONLY as the
       correctness ground truth for tests.
-
-The reference's ``fedavg_stacked`` (pod replica stacks) comes with the
-pod-training slice.
 """
 from __future__ import annotations
 
@@ -38,6 +38,18 @@ def fedavg(client_params: Sequence[Any], weights: Sequence[float]) -> Any:
         return acc.to(leaves[0].dtype)
 
     return tree_map(avg, *client_params)
+
+
+def fedavg_stacked(stacked: Any, weights: Any) -> Any:
+    """FedAvg over a leading client axis.
+
+    stacked: tree whose leaves have leading dim n_clients; weights:
+    (n_clients,), need not be normalized.  The whole replica stack is
+    reduced by one ``fedavg_reduce`` call (the kernel on a CUDA stack) —
+    see `agg_engine.fused_stacked_tree_reduce`."""
+    from .agg_engine import fused_stacked_tree_reduce
+
+    return fused_stacked_tree_reduce(stacked, weights)
 
 
 def aggregate_metrics(

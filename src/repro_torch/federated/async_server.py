@@ -1,9 +1,8 @@
 """Async round engine: straggler-folding FL rounds on the StreamingAggregator.
 
-The port of ``repro/federated/async_server.py`` but for structured
-updates and partial sums.  The paper's §3 protocol barriers every round
-on the slowest silo: the server collects all N ``c_msg_train`` messages,
-then aggregates.  In multi-cloud runs (§4.3/§5) stragglers and spot-VM
+The port of ``repro/federated/async_server.py``.  The paper's §3
+protocol barriers every round on the slowest silo: the server collects
+all N ``c_msg_train`` messages, then aggregates.  In multi-cloud runs (§4.3/§5) stragglers and spot-VM
 revocations dominate round time, so this engine folds each
 ``c_msg_train`` into a
 :class:`~repro_torch.federated.agg_engine.StreamingAggregator` the moment
@@ -44,8 +43,9 @@ With ``schema=`` updates are structured: each client's update is encoded
 as a :class:`~repro_torch.federated.compression.StructuredUpdate` of the
 schema's named groups (per-group error feedback when compression is on)
 and folded by the per-group aggregator; federated LoRA ships and folds
-only its adapters.  Partial sums (``emit_partial=True``, ``ROADMAP.md``
-queue 1, item 13) raise ``NotImplementedError``.
+only its adapters.  ``fold_round(..., emit_partial=True)`` finishes a
+round as a partial sum for a parent aggregator (a region of the
+two-level hierarchy, :mod:`repro_torch.federated.hierarchy`).
 """
 from __future__ import annotations
 
@@ -74,6 +74,7 @@ from .agg_engine import (
     AggregationEngine,
     CarryEntry,
     CarryOverBuffer,
+    PartialSum,
     ResolvedSchema,
     StalenessPolicy,
     UpdateSchema,
@@ -461,6 +462,10 @@ class FoldReport:
     carried_over: List[str] = dataclasses.field(default_factory=list)
     carried_in: List[str] = dataclasses.field(default_factory=list)
     escalations: List[str] = dataclasses.field(default_factory=list)
+    # Hierarchy: with ``fold_round(..., emit_partial=True)`` the round's
+    # accumulator leaves as a PartialSum for a parent engine instead of
+    # finalized params (params is None in that case).
+    partial: Optional[Any] = None
 
     @property
     def span_saved_s(self) -> float:
@@ -647,16 +652,20 @@ class AsyncRoundEngine:
         the next round no longer has, so the carry buffer always holds
         dense, base-independent parameters.
 
-        ``emit_partial=True`` (a regional aggregator's partial sum) comes
-        with the hierarchy, ``ROADMAP.md`` queue 1, item 13, and raises
-        ``NotImplementedError`` here."""
-        if emit_partial:
-            raise NotImplementedError(
-                "partial sums: ROADMAP.md queue 1, item 13 (hierarchy)"
-            )
+        ``emit_partial=True`` (hierarchy: this engine is a regional
+        aggregator) finishes the round as a
+        :class:`~repro_torch.federated.agg_engine.PartialSum` on
+        ``FoldReport.partial`` instead of finalized params
+        (``FoldReport.params`` is None) — requires ``base_params``,
+        since partial sums compose only against a shared base."""
         deadline = deadline if deadline is not None else self.deadline
         if not results:
             raise ValueError("fold_round needs at least one client result")
+        if emit_partial and base_params is None:
+            raise ValueError(
+                "emit_partial requires base_params: partial sums compose "
+                "only against a shared delta base"
+            )
         by_id = {r.client_id: r for r in results}
         arrivals = schedule.round_arrivals(round_idx, list(by_id))
 
@@ -820,8 +829,17 @@ class AsyncRoundEngine:
             )
 
         t0 = time.monotonic()
-        params = agg.result()
-        synchronize(tree_device(params))
+        partial = None
+        if emit_partial:
+            params = None
+            partial = agg.export_partial()
+            # A StructuredPartialSum holds one accumulator per group.
+            for acc in ([partial.acc] if isinstance(partial, PartialSum)
+                        else [g.acc for _, g in partial.groups]):
+                synchronize(acc.device)
+        else:
+            params = agg.result()
+            synchronize(tree_device(params))
         finalize = (time.monotonic() - t0) if self.fold_cost_s is None else 0.0
         busy += finalize
         span = server_free + finalize
@@ -877,6 +895,7 @@ class AsyncRoundEngine:
             carried_over=carried_over,
             carried_in=carried_in,
             escalations=escalations,
+            partial=partial,
         )
 
     # ------------------------------------------------------------------
@@ -986,6 +1005,7 @@ class AsyncFLServer(FLServer):
         # named groups (per-group error feedback when compression is also
         # on), folded through the per-group aggregator.
         self._schema = as_update_schema(schema)
+        self._staleness_policy = staleness_policy
         self._struct_encoders: Dict[str, StructuredCompressor] = {}
         self._round_engine = AsyncRoundEngine(
             self.agg_engine,

@@ -150,3 +150,112 @@ def test_cpu_aggregate_launches_no_kernel():
     before = fedavg_reduce.launches
     AggregationEngine().aggregate([_port(t) for t in trees], weights)
     assert fedavg_reduce.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The stacked reduces (tests/test_agg_engine.py:328, tests/test_federated.py:70)
+# ---------------------------------------------------------------------------
+
+def _stack(rng, n, dtype):
+    return {"w": jnp.asarray(rng.standard_normal((n, 6, 5)), dtype),
+            "b": jnp.asarray(rng.standard_normal((n, 13)), dtype),
+            "scalarish": jnp.asarray(rng.standard_normal((n,)), dtype)}
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_fedavg_stacked_fused_matches_per_leaf(dtype):
+    """``fedavg_stacked`` (one fused (N, L) reduce) against the reference's
+    on the same stack, and against the per-leaf formula."""
+    from repro.federated.aggregation import fedavg_stacked as jax_fedavg_stacked
+    from repro_torch.federated.aggregation import fedavg_stacked
+
+    rng = np.random.default_rng(3)
+    stacked = _stack(rng, 4, dtype)
+    weights = rng.uniform(0.5, 3.0, 4).astype(np.float32)
+    got = fedavg_stacked(_port(stacked), torch.from_numpy(weights))
+    _assert_same_tree(got, jax_fedavg_stacked(stacked, jnp.asarray(weights)), dtype)
+    wn = weights / weights.sum()
+    want = {k: jnp.asarray(np.tensordot(wn, np.asarray(v, np.float32), axes=1), dtype)
+            for k, v in stacked.items()}
+    _assert_same_tree(got, want, dtype)
+    assert got["scalarish"].shape == ()
+
+
+@pytest.mark.parametrize("n,shapes,seed", [
+    (2, ((3,), (2, 2)), 0),
+    (3, ((5, 4), (7,)), 1),
+    (5, ((1,), (9, 3)), 2),
+    (8, ((2, 3, 4), (6,)), 3),
+])
+def test_fedavg_stacked_matches_list(n, shapes, seed):
+    """Deterministic twins of the reference's hypothesis property: the
+    stacked reduce of N trees equals ``fedavg`` of the list (1e-5), in the
+    port and in the reference."""
+    from repro.federated.aggregation import fedavg as jax_fedavg
+    from repro.federated.aggregation import fedavg_stacked as jax_fedavg_stacked
+    from repro_torch.federated.aggregation import fedavg, fedavg_stacked
+
+    rng = np.random.default_rng(seed)
+    trees = [{"w": rng.standard_normal(shapes[0]).astype(np.float32),
+              "b": rng.standard_normal(shapes[1]).astype(np.float32)} for _ in range(n)]
+    weights = [float(w) for w in rng.uniform(1.0, 50.0, n)]
+    stacked = {k: np.stack([t[k] for t in trees]) for k in ("w", "b")}
+    got = fedavg_stacked({k: torch.from_numpy(v) for k, v in stacked.items()},
+                         torch.tensor(weights))
+    want = fedavg([{k: torch.from_numpy(v) for k, v in t.items()} for t in trees], weights)
+    jgot = jax_fedavg_stacked({k: jnp.asarray(v) for k, v in stacked.items()},
+                              jnp.asarray(weights, jnp.float32))
+    jwant = jax_fedavg([{k: jnp.asarray(v) for k, v in t.items()} for t in trees], weights)
+    for key in ("w", "b"):
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(jgot[key]), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(jgot[key]), np.asarray(jwant[key]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_stacked_reduce_uses_the_padded_layout(monkeypatch):
+    """The (N, L) buffer handed to ``fedavg_reduce`` is a view of an
+    (N, Lp) buffer, Lp a multiple of BLOCK, also when L % 4 == 2 (the
+    paper's FEMNIST width): every row starts 16-byte aligned.  An empty
+    tree comes back as it is."""
+    from repro_torch.federated import agg_engine
+
+    seen = []
+
+    def spy(stacked, weights):
+        seen.append((tuple(stacked.shape), stacked.stride(), weights.dtype))
+        return fedavg_reduce(stacked, weights)
+
+    monkeypatch.setattr(agg_engine, "fedavg_reduce", spy)
+    stacked = {"a": torch.randn(3, 5, 2), "b": torch.randn(3, 4)}  # L = 14, L % 4 == 2
+    out = agg_engine.fused_stacked_tree_reduce(stacked, [1.0, 2.0, 3.0])
+    assert seen == [((3, 14), (BLOCK, 1), torch.float32)]
+    assert out["a"].shape == (5, 2) and out["b"].shape == (4,)
+    assert agg_engine.fused_stacked_tree_reduce({}, [1.0]) == {}
+
+
+def test_stacked_reduce_returns_each_leaf_in_its_dtype():
+    from repro_torch.federated.agg_engine import fused_stacked_tree_reduce
+
+    stacked = {"h": torch.randn(2, 3).to(torch.bfloat16), "f": torch.randn(2, 4)}
+    out = fused_stacked_tree_reduce(stacked, torch.tensor([1.0, 3.0]))
+    assert out["h"].dtype == torch.bfloat16 and out["f"].dtype == torch.float32
+    np.testing.assert_allclose(out["f"].numpy(), (stacked["f"][0] * 0.25 + stacked["f"][1] * 0.75)
+                               .numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_stacked_reduce_launches_the_kernel_on_card():
+    """On the card: one ``fedavg_reduce`` launch, within 2e-5 of the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.federated.agg_engine import fused_stacked_tree_reduce
+
+    stacked = {"a": torch.randn(4, 300, 7), "b": torch.randn(4, 1001)}
+    w = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    before = fedavg_reduce.launches
+    got = fused_stacked_tree_reduce({k: v.cuda() for k, v in stacked.items()}, w.cuda())
+    assert fedavg_reduce.launches == before + 1
+    want = fused_stacked_tree_reduce(stacked, w)
+    for k in stacked:
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(), atol=2e-5, rtol=2e-5)

@@ -19,11 +19,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from conftest import make_results
 from repro.core.revocation import RevocationModel as JaxRevocationModel
 from repro.federated import async_server as ja
+from repro.federated.agg_engine import AggregationEngine as JaxEngine
 from repro.federated.agg_engine import DriftAwareDiscount as JaxDrift
 from repro.federated.client import ClientResult as JaxResult
 from repro.federated.client import EvalResult as JaxEval
@@ -34,7 +34,6 @@ from repro_torch.federated.agg_engine import (
     AggregationEngine,
     CarryEntry,
     DriftAwareDiscount,
-    StreamingAggregator,
 )
 from repro_torch.federated.client import ClientResult, EvalResult
 from repro_torch.federated.compression import CompressedUpdate, CompressionSpec, compress
@@ -449,17 +448,50 @@ def test_async_server_with_revocations_matches_reference():
 
 
 def test_later_items_still_raise():
-    # Structured updates (item 11) are ported; their partial sums belong to
-    # the hierarchy (item 13) like the dense ones.
-    sagg = AggregationEngine().streaming(base={"w": torch.zeros(2)}, schema={"a": "w"})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sagg.export_partial()
-    agg = StreamingAggregator(base={"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        agg.export_partial()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ta.AsyncRoundEngine().fold_round(1, _port_results(make_results(2)), ta.InstantSchedule(),
-                                         base_params={"w": torch.zeros(2)}, emit_partial=True)
+    """The branches that raised until the hierarchy was ported now export
+    partial sums as the reference does: a dense and a structured
+    aggregator's ``export_partial`` and ``fold_round(emit_partial=True)``
+    (params None, the partial on the report, the trace equal).  What
+    still raises is what raises in the reference: an empty export, and
+    ``emit_partial`` without a delta base (ValueError, same message)."""
+    results = make_results(3, seed=4)
+    tres = _port_results(results)
+    base, jbase = tres[0].params, results[0].params
+    for schema in (None, {"a": "leaf0"}):
+        agg = AggregationEngine().streaming(base=base, base_round=1, schema=schema)
+        jagg_ = JaxEngine().streaming(base=jbase, base_round=1, schema=schema)
+        with pytest.raises(ValueError, match="no clients") as info:
+            agg.export_partial()
+        with pytest.raises(ValueError) as jinfo:
+            jagg_.export_partial()
+        assert str(info.value) == str(jinfo.value)
+        for r, j in zip(tres, results):
+            agg.add(r.params, r.n_samples)
+            jagg_.add(j.params, j.n_samples)
+        p, jp = agg.export_partial("r"), jagg_.export_partial("r")
+        parts = [p] if schema is None else [g for _, g in p.groups]
+        jparts = [jp] if schema is None else [g for _, g in jp.groups]
+        assert [(q.n_clients, q.wsum, q.plan_signature, q.wire_bytes) for q in parts] == \
+            [(q.n_clients, q.wsum, q.plan_signature, q.wire_bytes) for q in jparts]
+        for q, jq in zip(parts, jparts):
+            np.testing.assert_allclose(q.acc.numpy(), np.asarray(jq.acc), atol=2e-5, rtol=2e-5)
+    kw = dict(fold_cost_s=0.25)
+    with pytest.raises(ValueError, match="emit_partial requires base_params") as info:
+        ta.AsyncRoundEngine(**kw).fold_round(1, tres, ta.InstantSchedule(), emit_partial=True)
+    with pytest.raises(ValueError) as jinfo:
+        ja.AsyncRoundEngine(**kw).fold_round(1, results, ja.InstantSchedule(), emit_partial=True)
+    assert str(info.value) == str(jinfo.value)
+    tengine, jengine = ta.AsyncRoundEngine(**kw), ja.AsyncRoundEngine(**kw)
+    rep = tengine.fold_round(1, tres, ta.InstantSchedule(), base_params=base, emit_partial=True)
+    jrep = jengine.fold_round(1, results, ja.InstantSchedule(), base_params=jbase,
+                              emit_partial=True)
+    assert rep.params is None and jrep.params is None
+    assert (rep.partial.n_clients, rep.partial.wsum, rep.partial.base_round,
+            rep.partial.wire_bytes) == (jrep.partial.n_clients, jrep.partial.wsum,
+                                        jrep.partial.base_round, jrep.partial.wire_bytes)
+    np.testing.assert_allclose(rep.partial.acc.numpy(), np.asarray(jrep.partial.acc),
+                               atol=2e-5, rtol=2e-5)
+    assert _trace(tengine.bus) == _trace(jengine.bus)
 
 
 # ---------------------------------------------------------------------------

@@ -212,9 +212,31 @@ class _Late(InstantSchedule):
 
 @pytest.mark.parametrize("kw", [{"emit_partial": True}])
 def test_later_branches_raise_not_implemented(kw):
+    """The branch that raised until the hierarchy came (``emit_partial``)
+    now raises only where the reference does — with no delta base — and
+    with one exports the round as a partial sum, as the reference does:
+    params None, the fp32 accumulator holding the weighted deltas."""
+    from repro.federated.async_server import AsyncRoundEngine as JaxRoundEngine
+    from repro.federated.async_server import InstantSchedule as JaxInstant
+    from repro.federated.client import ClientResult as JaxResult
+
     args = {"schedule": InstantSchedule(), **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="emit_partial requires base_params"):
         AsyncRoundEngine().fold_round(1, _results(), **args)
+    base = {"w": torch.zeros(5)}
+    report = AsyncRoundEngine(fold_cost_s=0.25).fold_round(1, _results(), base_params=base,
+                                                           **args)
+    jresults = [JaxResult(r.client_id, {"w": jnp.asarray(r.params["w"].numpy())}, r.n_samples,
+                          0.0) for r in _results()]
+    jreport = JaxRoundEngine(fold_cost_s=0.25).fold_round(
+        1, jresults, JaxInstant(), base_params={"w": jnp.zeros(5)}, **kw)
+    assert report.params is None and jreport.params is None
+    assert (report.partial.n_clients, report.partial.wsum, report.partial.base_round,
+            report.partial.wire_bytes, report.round_span_s) == \
+        (jreport.partial.n_clients, jreport.partial.wsum, jreport.partial.base_round,
+         jreport.partial.wire_bytes, jreport.round_span_s)
+    np.testing.assert_array_equal(report.partial.acc[:5].numpy(), [80.0] * 5)
+    np.testing.assert_array_equal(report.partial.acc.numpy(), np.asarray(jreport.partial.acc))
 
 
 @pytest.mark.parametrize("branch", ["deadline", "base_params", "spread_schedule"])

@@ -261,11 +261,69 @@ def test_signed_zero_survives_the_structured_fold():
 
 
 def test_structured_partial_sums_raise_naming_the_hierarchy():
-    agg = AggregationEngine().streaming(base=_tree(1), schema={"a": "leaf0"})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        agg.export_partial()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        agg.fold_partial(object())
+    """Structured partial sums, ported with the hierarchy: the export
+    omits groups no client shipped and carries each present group's
+    accumulator, weight and count as the reference's does; what still
+    raises (an empty export, a partial taken under another schema, named
+    by its region) raises as in the reference, with the same message."""
+    schema = {"a": "leaf0", "b": "leaf1", "c": "leaf2"}
+    raised = []
+    for eng, base, local in ((AggregationEngine, _tree(1), _tree(2)),
+                             (jagg.AggregationEngine, _jtree(1), _jtree(2))):
+        agg = eng().streaming(base=base, base_round=1, schema=schema)
+        with pytest.raises(ValueError, match="no clients") as info:
+            agg.export_partial()
+        raised.append(str(info.value))
+        agg.add({"a": agg.schema.group("a").flatten(local)}, 3.0)
+        agg.add(local, 5.0)
+        raised.append(agg.export_partial(region_id="east"))
+        other = eng().streaming(base=base, base_round=1, schema={"all": ""})
+        with pytest.raises(StructureMismatchError if eng is AggregationEngine
+                           else jagg.StructureMismatchError, match="east") as info:
+            other.fold_partial(raised[-1])
+        raised.append(str(info.value))
+    tmsg, tpart, tmis, jmsg, jpart, jmis = raised
+    assert tmsg == jmsg and tmis == jmis
+    assert [(n, p.n_clients, p.wsum, p.plan_signature, p.wire_bytes) for n, p in tpart.groups] \
+        == [(n, p.n_clients, p.wsum, p.plan_signature, p.wire_bytes) for n, p in jpart.groups]
+    assert [n for n, _ in tpart.groups] == ["a", "b", "c"] and tpart.n_clients == 2
+    assert tpart.group_wsums() == {"a": 8.0, "b": 5.0, "c": 5.0} == jpart.group_wsums()
+    assert tpart.wsum == jpart.wsum == 8.0
+    for (_, p), (_, jp) in zip(tpart.groups, jpart.groups):
+        np.testing.assert_allclose(p.acc.numpy(), np.asarray(jp.acc), atol=2e-5, rtol=2e-5)
+    only_a = AggregationEngine().streaming(base=_tree(1), base_round=1, schema=schema)
+    only_a.add({"a": only_a.schema.group("a").flatten(_tree(2))}, 3.0)
+    assert [n for n, _ in only_a.export_partial().groups] == ["a"]  # absent groups omitted
+
+
+def test_full_coverage_hierarchy_partial_sum_matches_dense():
+    """The regional partial-sum route (tests/test_structured.py:199): two
+    structured regional folds exported and folded into a global
+    structured aggregator match the same topology on the dense path, bit
+    for bit, and the reference's structured route within 2e-5."""
+    base = _tree(seed=1)
+    locals_ = [_tree(seed=2 + i) for i in range(4)]
+    weights = [10.0, 25.0, 7.0, 13.0]
+    regions = [(0, 1), (2, 3)]
+    engine = AggregationEngine()
+    groups = {"a": "leaf0", "b": ["leaf1", "leaf2"]}
+    schema = UpdateSchema(groups)
+
+    def route(eng, schema, base, locals_):
+        top = eng.streaming(base=base, base_round=1, schema=schema)
+        for ids in regions:
+            reg = eng.streaming(base=base, base_round=1, schema=schema)
+            for i in ids:
+                reg.add(locals_[i], weights[i])
+            top.fold_partial(reg.export_partial(region_id=f"r{ids}"))
+        return top.result()
+
+    want = route(engine, None, base, locals_)
+    got = route(engine, schema, base, locals_)
+    _assert_bit_identical(got, want)
+    jgot = route(jagg.AggregationEngine(), jagg.UpdateSchema(groups), _jtree(1),
+                 [_jtree(seed=2 + i) for i in range(4)])
+    _assert_close_to_jax(got, jgot)
 
 
 # ---------------------------------------------------------------------------
