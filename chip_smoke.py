@@ -148,7 +148,19 @@ or of the JAX package.  In order it:
      2 rounds of a cohort of 4; federated LoRA of olmo-1b through two
      regions against its flat twin; and ``fedavg_stacked`` over 4 FEMNIST
      trees (one ``fedavg_reduce`` launch);
- 20. runs the live transport at the paper's FEMNIST width: the five
+ 20. runs the pod round: on an NCCL process group of one, a
+     ``make_host_mesh(data=1, model=1)`` and a ``pod=1`` ``DeviceMesh`` (a
+     ``data=2`` one refused), olmo-1b's parameters placed by ``param_specs``
+     through ``distribute`` (every local shard bit-equal) and
+     ``batch_iterator`` yielding DTensors; then ``make_fl_round_step`` for
+     olmo-1b and mamba2-130m at full width and depth in bf16, 2 pods x 4
+     local steps of (2, 2048) and (4, 2048), 2 rounds: 128 + 128 flash or
+     192 + 192 SSD launches and one ``fedavg_reduce`` a round, the pods
+     bit-equal after each barrier, round 1 bit-equal to a sequential twin,
+     the round's wall time split into local steps and the barrier (the
+     ``fedavg_reduce`` launch by CUDA events beside its bound), peak
+     memory; a reduced olmo-1b pod round card against CPU;
+ 21. runs the live transport at the paper's FEMNIST width: the five
      silos of ``femnist_application()`` as ``ThreadWorkerPool`` workers
      behind ``SocketTransport`` on loopback, int8 updates folded by
      ``dequant_fold`` in this process (one launch a folded update), 3
@@ -161,13 +173,13 @@ or of the JAX package.  In order it:
      sizes, round 1 traced (the device's idle share) and replayed in
      process on its recorded arrivals (params within 2e-5, equal
      ``chaos_signature``);
- 21. runs 2 mamba2-130m silos (full width and depth, bf16) as spawned
+ 22. runs 2 mamba2-130m silos (full width and depth, bf16) as spawned
      ``ProcessWorkerPool`` children that build their client and template
      on the card and raise unless their weights are CUDA tensors and both
      SSD kernels launched in them; 2 int8 rounds, one child terminated by
      an eval-phase revocation and respawned; each fold against the plain
      weighted fold of the same decoded deltas;
- 22. runs ``tests/test_chaos.py``'s soak at its toy size with tensors on
+ 23. runs ``tests/test_chaos.py``'s soak at its toy size with tensors on
      the card: five rounds, all seven fault kinds, the live and the
      virtual-clock drivers' signatures, pairing and folded weight.
 For each path every kernel's launch count is set to 0 just before and
@@ -179,8 +191,10 @@ Details also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -191,11 +205,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# jamba's train phase runs at 75.9 of the card's 79.18 GiB: with the
+# allocator's fixed segments, 3.6 GiB of cached blocks too small for its
+# slices once left its traced step out of memory.  Segments that grow in
+# place do not fragment so.  Read when CUDA first allocates, so set here
+# (the trainer's and the live phases' child processes inherit it).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
-TF32_FLOPS_PER_S = 495e12   # H100 SXM tf32 tensor cores, dense
+from repro_torch.roofline import hardware as H100  # noqa: E402 (the H100 SXM data sheet's table)
+
+HBM_BYTES_PER_S = H100.HBM_BANDWIDTH
+FP32_FLOPS_PER_S = H100.PEAK_FLOPS_FP32     # fp32 outside the tensor cores
+BF16_FLOPS_PER_S = H100.PEAK_FLOPS_BF16     # bf16 tensor cores, dense
+TF32_FLOPS_PER_S = H100.PEAK_FLOPS_TF32     # tf32 tensor cores, dense
 PAPER_L = 164_187_070       # FemnistConfig() parameter count
 N_SILOS = 4
 TIMING_ROUNDS = 4       # rounds of kernel / plain / library, order alternating
@@ -360,6 +382,10 @@ def phase_device():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    free, total = torch.cuda.mem_get_info(0)
+    say(f"[device] torch.cuda.mem_get_info total {total / 2**30:.2f} GiB, free {free / 2**30:.2f} "
+        f"GiB (table: HBM_BYTES {H100.HBM_BYTES / 1e9:.0f} GB, HBM_BYTES_VISIBLE "
+        f"{H100.HBM_BYTES_VISIBLE / 2**30:.2f} GiB)")
     return smi
 
 
@@ -3769,6 +3795,308 @@ def phase_stacked_reduce():
 
 
 # ---------------------------------------------------------------------------
+# Pod-parallel FedAvg, meshes and placement
+# ---------------------------------------------------------------------------
+
+POD_N = 2               # pods (FL silos): the reference's multi-pod mesh has 2
+POD_LOCAL_STEPS = 4     # local steps a round (the reference dry-run's LOCAL_STEPS)
+POD_ROUNDS = 2
+POD_BATCH = {"olmo-1b": 4, "mamba2-130m": 8}   # global batches: per-pod (2, 2048) and (4, 2048)
+POD_CUT = None          # olmo-1b's depth cut, were its round not to fit on the card: none, full depth
+
+
+def phase_pod_mesh():
+    """Meshes and placement on an NCCL process group of one: a
+    ``make_host_mesh(data=1, model=1)`` ("data", "model") ``DeviceMesh`` and
+    a ``pod=1`` one, a mesh of the wrong size refused; olmo-1b's parameters
+    (full width, bf16, seed 0) placed by ``param_specs`` through
+    ``distribute``, each rank-local shard bit-equal to the tensor it came
+    from; ``batch_iterator`` yielding DTensors sharded on "data" whose
+    local data equals the iterator's without a mesh.  The group is
+    destroyed at the end, before the live phases spawn processes."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, batch_iterator
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.sharding import axis_sizes, distribute, param_specs
+    from repro_torch.utils.tree import tree_leaves
+
+    with _pod_of_one():
+        mesh = make_host_mesh(data=1, model=1)
+        pod_mesh = make_host_mesh(pod=1)
+        refused = False
+        try:
+            make_host_mesh(data=2)
+        except ValueError:
+            refused = True
+        check(mesh.device_type == "cuda" and axis_sizes(mesh) == {"data": 1, "model": 1},
+              "a (data=1, model=1) mesh on the card")
+        check(axis_sizes(pod_mesh) == {"pod": 1, "data": 1, "model": 1}, "a pod=1 mesh")
+        check(refused, "a data=2 mesh on a group of one raises")
+        cfg = get_config("olmo-1b")
+        params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        specs = param_specs(params, cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        placed = distribute(params, mesh, specs)
+        torch.cuda.synchronize()
+        place_s = time.monotonic() - t0
+        leaves, dts = tree_leaves(params), tree_leaves(placed)
+        exact = len(leaves) == len(dts) and all(
+            isinstance(d, DTensor) and d.to_local().is_cuda and _bit_equal([d.to_local()], [t])
+            for t, d in zip(leaves, dts))
+        sharded = sum(any(p.is_shard() for p in d.placements) for d in dts)
+        n, n_leaves = sum(t.numel() for t in leaves), len(leaves)
+        del placed, params, leaves, dts
+        it = batch_iterator(SyntheticLM(cfg.vocab_size, TRAIN_S, seed=0), TRAIN_B, seed=0, mesh=mesh)
+        plain = batch_iterator(SyntheticLM(cfg.vocab_size, TRAIN_S, seed=0), TRAIN_B, seed=0)
+        b, want = next(it), next(plain)
+        batch_ok = all(isinstance(b[k], DTensor) and list(b[k].placements) == [Shard(0), Replicate()]
+                       and torch.equal(b[k].to_local(), want[k]) and want[k].is_cuda
+                       for k in ("tokens", "labels"))
+    torch.cuda.empty_cache()
+    say(f"[pod-mesh] NCCL group of one: meshes {mesh.mesh_dim_names} {tuple(mesh.shape)} and "
+        f"{pod_mesh.mesh_dim_names} {tuple(pod_mesh.shape)}, data=2 refused: {refused}; olmo-1b "
+        f"({n:,} parameters, {n_leaves} leaves, {sharded} with a Shard placement) distributed in {place_s * 1e3:.1f} ms, every "
+        f"local shard bit-equal: {exact}; batch_iterator DTensors on data: {batch_ok}")
+    check(exact, "distribute keeps every olmo-1b leaf bit-equal")
+    check(batch_ok, "batch_iterator yields DTensors sharded on data, equal to the plain batches")
+    return {"distribute_s": place_s, "params": n, "sharded_leaves": sharded, "exact": exact,
+            "batch_ok": batch_ok}
+
+
+class _barrier_clock:
+    """Within ``with``: host clock marks around the pod step's
+    ``fedavg_stacked`` (a synchronize first, so the pods' local work is
+    done) and around its ``fedavg_reduce`` launch, which CUDA events also
+    time on the card."""
+
+    def __enter__(self):
+        import torch
+
+        self.pf = sys.modules["repro_torch.federated.pod_fedavg"]
+        self.ae = sys.modules["repro_torch.federated.agg_engine"]
+        self.stacked, self.reduce = self.pf.fedavg_stacked, self.ae.fedavg_reduce
+
+        def stacked(*a, **kw):
+            torch.cuda.synchronize()
+            self.enter = time.monotonic()
+            out = self.stacked(*a, **kw)
+            torch.cuda.synchronize()
+            self.exit = time.monotonic()
+            return out
+
+        def reduce(*a, **kw):
+            torch.cuda.synchronize()
+            self.reduce_in = time.monotonic()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.reduce(*a, **kw)
+            end.record()
+            end.synchronize()
+            self.reduce_ms = start.elapsed_time(end)
+            self.reduce_out = time.monotonic()
+            return out
+
+        self.pf.fedavg_stacked, self.ae.fedavg_reduce = stacked, reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.pf.fedavg_stacked, self.ae.fedavg_reduce = self.stacked, self.reduce
+        return False
+
+
+def _pod_batches(cfg, ds, global_batch: int, rngs, local_steps: int = POD_LOCAL_STEPS,
+                 device="cuda") -> dict:
+    """One round's batches, shaped by ``pod_batch_shape``: pod ``p`` draws
+    its local steps' sequences from its own generator (``rngs[p]``, seeded
+    100 + p: non-IID silos, as ``examples/pod_fedavg_train.py`` makes them)."""
+    import numpy as np
+    import torch
+    from repro_torch.federated import pod_batch_shape
+
+    shape = pod_batch_shape(cfg, POD_N, local_steps, global_batch, ds.seq_len)["tokens"][0]
+    toks, labels = np.empty(shape, np.int32), np.empty(shape, np.int32)
+    for p in range(POD_N):
+        for s in range(local_steps):
+            toks[p, s], labels[p, s] = ds.sample(rngs[p], shape[2])
+    return {"tokens": torch.from_numpy(toks).to(device), "labels": torch.from_numpy(labels).to(device)}
+
+
+def _pods_bit_equal(stacked) -> bool:
+    from repro_torch.utils.tree import tree_leaves
+
+    return all(_bit_equal([x[0]], [x[i]]) for x in tree_leaves(stacked) for i in range(1, x.shape[0]))
+
+
+def _pod_round(arch: str) -> dict:
+    """``arch`` at full width and depth (bf16, ``make_optimizer_for``'s
+    AdamW, random weights from seed 0): POD_N pods, POD_LOCAL_STEPS local
+    steps a round, POD_ROUNDS rounds of ``make_fl_round_step``.  First the
+    sequential twin of round 1 (each pod trains alone through
+    ``make_train_step`` from the same start, ``fedavg_stacked`` folds the
+    finals, held against the plain per-leaf ``fedavg``); only its average
+    is kept, on the host.  Each round: its wall time split into the pods'
+    local steps and the barrier (flatten, the ``fedavg_reduce`` launch by
+    CUDA events beside its bound, unflatten, broadcast), the launches, the
+    pods bit-equal after the barrier; round 1 bit-equal to the twin."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.federated import (
+        fedavg, fedavg_stacked, init_pod_state, make_fl_round_step, make_train_step)
+    from repro_torch.launch.steps import make_optimizer_for
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch)
+    if arch == "olmo-1b" and POD_CUT:
+        cfg = cfg.with_overrides(**POD_CUT)
+    model, opt = get_model(cfg), make_optimizer_for(cfg)
+    # olmo-1b's round needs ~69.5 GiB of the card's 79.18.
+    torch.cuda.empty_cache()
+    entry = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sp, so = init_pod_state(model, opt, torch.Generator(device="cuda").manual_seed(0), POD_N, "cuda")
+    L = sum(x[0].numel() for x in tree_leaves(sp))
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_S, seed=0)
+    rngs = [np.random.default_rng(100 + p) for p in range(POD_N)]
+    batches = [_pod_batches(cfg, ds, POD_BATCH[arch], rngs) for _ in range(POD_ROUNDS)]
+    w = torch.ones(POD_N)
+    steps = POD_N * POD_LOCAL_STEPS
+    only = (dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": 1}
+            | {k: v * steps for k, v in (_launches(cfg) | _launches(cfg, True)).items()})
+    tag = f"[pod] {arch} bf16"
+
+    # The sequential twin of round 1.
+    zero_counts()
+    t0 = time.monotonic()
+    train = make_train_step(model, opt)
+    finals = []
+    for pod in range(POD_N):
+        p = tree_map(lambda x: x[pod], sp)
+        o = type(so)(so.step, *(tree_map(lambda x: x[pod], t) for t in so[1:]))
+        for s in range(POD_LOCAL_STEPS):
+            p, o, _ = train(p, o, {k: v[pod, s] for k, v in batches[0].items()})
+        finals.append(p)
+        del p, o
+    stacked = tree_map(lambda *xs: torch.stack(xs), *finals)
+    twin = fedavg_stacked(stacked, w)
+    del stacked
+    oracle = fedavg(finals, [1.0] * POD_N)
+    oracle_err = max(rel_l2(a, b) for a, b in zip(tree_leaves(twin), tree_leaves(oracle)))
+    oracle_tol = 2e-2 if tree_leaves(twin)[0].dtype == torch.bfloat16 else 2e-5
+    twin = [t.cpu() for t in tree_leaves(twin)]
+    del finals, oracle
+    torch.cuda.synchronize()
+    twin_s, twin_launches = time.monotonic() - t0, counts()
+    torch.cuda.empty_cache()
+
+    step = make_fl_round_step(model, opt, POD_LOCAL_STEPS)
+    params, opt_state = sp, so
+    del sp, so
+    rows, twin_equal = [], None
+    bound_ms = 3 * 4 * L / HBM_BYTES_PER_S * 1e3   # (POD_N=2, L) fp32 read, (L,) written
+    for r in range(POD_ROUNDS):
+        zero_counts()
+        with _barrier_clock() as clk:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            params, opt_state, loss = step(params, opt_state, batches[r])
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+        launches = counts()
+        synced = _pods_bit_equal(params)
+        if r == 0:
+            twin_equal = all(_bit_equal([a[0].cpu()], [b]) for a, b in zip(tree_leaves(params), twin))
+        row = {"round": r + 1, "loss": float(loss), "wall_s": t1 - t0,
+               "local_s": clk.enter - t0, "barrier_s": t1 - clk.enter,
+               "flatten_s": clk.reduce_in - clk.enter, "reduce_ms": clk.reduce_ms,
+               "unflatten_s": clk.exit - clk.reduce_out, "broadcast_s": t1 - clk.exit,
+               "launches": launches, "pods_bit_equal": synced, "step": opt_state.step}
+        rows.append(row)
+        say(f"{tag} round {r + 1}: loss {row['loss']:.4f}; wall {row['wall_s']:.3f} s = local steps "
+            f"{row['local_s']:.3f} s + barrier {row['barrier_s'] * 1e3:.1f} ms (flatten "
+            f"{row['flatten_s'] * 1e3:.1f} ms, fedavg_reduce {row['reduce_ms']:.4f} ms by CUDA events "
+            f"against its bound {bound_ms:.4f} ms ({bound_ms / row['reduce_ms'] * 100:.1f} %), "
+            f"unflatten {row['unflatten_s'] * 1e3:.1f} ms, broadcast {row['broadcast_s'] * 1e3:.1f} ms); "
+            f"launches {_nonzero(launches)}; pods bit-equal after the barrier: {synced}")
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt_state, batches, twin
+    torch.cuda.empty_cache()
+    say(f"{tag}: {POD_N} pods x {POD_LOCAL_STEPS} local steps, per-pod batch "
+        f"({POD_BATCH[arch] // POD_N}, {TRAIN_S}), L = {L:,} ({cfg.n_layers} layers); sequential "
+        f"twin {twin_s:.2f} s, launches {_nonzero(twin_launches)}, its fedavg_stacked against the "
+        f"plain per-leaf fedavg {oracle_err:.3e} relative L2 (tol {oracle_tol:g}); round 1 bit-equal "
+        f"to the twin: {twin_equal}; max_memory_allocated {peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.mem_get_info(0)[1] / 2**30:.2f} GiB ({entry / 2**30:.2f} GiB held on entry)")
+    check(twin_launches == only, f"{arch} twin launches {only}, got {_nonzero(twin_launches)}")
+    check(oracle_err <= oracle_tol, f"{arch} fedavg_stacked within {oracle_tol:g} of fedavg")
+    check(twin_equal, f"{arch} round 1 bit-equal to the sequential twin")
+    for row in rows:
+        check(row["launches"] == only, f"{arch} round {row['round']} launches {only}")
+        check(row["pods_bit_equal"], f"{arch} pods bit-equal after round {row['round']}")
+        check(math.isfinite(row["loss"]), f"{arch} round {row['round']} loss finite")
+        check(row["step"] == POD_LOCAL_STEPS * row["round"], f"{arch} optimizer step count")
+    check(rows[-1]["loss"] < rows[0]["loss"], f"{arch} round {POD_ROUNDS}'s loss below round 1's")
+    return {"params": L, "layers": cfg.n_layers, "rounds": rows, "twin_s": twin_s,
+            "oracle_rel_l2": oracle_err, "twin_bit_equal": twin_equal, "bound_ms": bound_ms,
+            "peak_bytes": peak, "entry_bytes": entry, "launches": rows[0]["launches"]}
+
+
+def _pod_round_card_vs_cpu() -> dict:
+    """Reduced olmo-1b in fp32: one pod round (POD_N pods, 2 local steps,
+    per-pod batch (2, 64)) on the card (kernels) and on the CPU (plain
+    versions) from the same weights: loss within 1e-4 relative, every
+    parameter leaf within 1e-4 relative L2, the kernels launched on the
+    card only."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.federated import init_pod_state, make_fl_round_step
+    from repro_torch.launch.steps import make_optimizer_for
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("olmo-1b").reduced().with_overrides(dtype="float32", param_dtype="float32")
+    model, opt = get_model(cfg), make_optimizer_for(cfg)
+    sp, _ = init_pod_state(model, opt, torch.Generator().manual_seed(5), POD_N, "cpu")
+    rngs = [np.random.default_rng(100 + p) for p in range(POD_N)]
+    batch = _pod_batches(cfg, SyntheticLM(cfg.vocab_size, 64, seed=0), 2 * POD_N, rngs,
+                         local_steps=2, device="cpu")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), sp)
+        zero_counts()
+        new, _, loss = make_fl_round_step(model, opt, 2)(
+            p, opt.init(p), {k: v.to(device) for k, v in batch.items()})
+        runs[device] = ([t.cpu() for t in tree_leaves(new)], float(loss), counts())
+    (cp, cl, cn), (pp, pl, pn) = runs["cuda"], runs["cpu"]
+    worst = max(rel_l2(a, b) for a, b in zip(cp, pp))
+    only = dict.fromkeys(KERNELS, 0)
+    want = only | {"fedavg_reduce": 1} | {k: v * POD_N * 2 for k, v in
+                                          (_launches(cfg) | _launches(cfg, True)).items()}
+    ok = abs(cl - pl) <= 1e-4 * abs(pl) and worst <= 1e-4 and cn == want and pn == only
+    say(f"[reference] reduced olmo-1b fp32 pod round ({POD_N} pods x 2 steps), card against CPU: "
+        f"loss {cl:.6f} / {pl:.6f}, worst leaf relative L2 {worst:.3e} (tol 1e-4); launches card "
+        f"{_nonzero(cn)}, cpu {_nonzero(pn)} {'ok' if ok else 'FAIL'}")
+    check(ok, "reduced olmo-1b pod round: card agrees with the CPU")
+    return {"loss": (cl, pl), "worst_rel_l2": worst, "launches": _nonzero(cn)}
+
+
+def phase_pod_round():
+    """The pod-parallel FedAvg round (``federated/pod_fedavg.py``) for
+    olmo-1b and mamba2-130m at full width and depth (``_pod_round``), then
+    a reduced olmo-1b pod round on the card against the CPU."""
+    return {"olmo-1b": _pod_round("olmo-1b"), "mamba2-130m": _pod_round("mamba2-130m"),
+            "reference": _pod_round_card_vs_cpu()}
+
+
+# ---------------------------------------------------------------------------
 # The live transport and the chaos harness
 # ---------------------------------------------------------------------------
 
@@ -4588,11 +4916,18 @@ PHASE_S: dict = {}   # seconds each phase of main() took, in order
 
 
 def timed(phase, *args):
-    """``phase(*args)``, its wall time printed and kept in PHASE_S."""
+    """``phase(*args)``, its wall time printed and kept in PHASE_S; then the
+    phase's cyclic garbage collected, and the card memory still allocated
+    printed (what later phases, the pod round's ~69.5 GiB among them, do
+    not get)."""
+    import torch
+
     t0 = time.monotonic()
     out = phase(*args)
     PHASE_S[phase.__name__] = time.monotonic() - t0
-    say(f"[phase] {phase.__name__} {PHASE_S[phase.__name__]:.1f} s")
+    gc.collect()
+    say(f"[phase] {phase.__name__} {PHASE_S[phase.__name__]:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated)")
     return out
 
 
@@ -4647,6 +4982,9 @@ def main() -> int:
     hier_round = timed(phase_hierarchy_round)
     hier_lora = timed(phase_hierarchy_lora)
     stacked = timed(phase_stacked_reduce)
+    pod_mesh = timed(phase_pod_mesh)   # its NCCL group is destroyed before the live phases
+    pod = timed(phase_pod_round)
+    pod_olmo, pod_ssm = pod["olmo-1b"]["launches"], pod["mamba2-130m"]["launches"]
     live = timed(phase_live_round)
     live_proc = timed(phase_live_process_round)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_soak_") as d:
@@ -4658,8 +4996,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:27",
-        # The barrier path's rounds and the stacked reduce.
-        "launches": path["launches"] + stacked["launches"]["fedavg_reduce"],
+        # The barrier path's rounds, the stacked reduce and each model's pod round.
+        "launches": (path["launches"] + stacked["launches"]["fedavg_reduce"]
+                     + pod_olmo["fedavg_reduce"] + pod_ssm["fedavg_reduce"]),
         "max_abs_err": main_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -4694,11 +5033,12 @@ def main() -> int:
                  for zoo_run in (zoo["olmo-1b bf16"], moe_zoo["granite-moe-1b-a400m bf16"],
                                  moe_zoo["deepseek-moe-16b bf16"],
                                  encdec_zoo["whisper-small bf16"],
-                                 hybrid_zoo[f"{JAMBA} bf16"])), flash_err),
+                                 hybrid_zoo[f"{JAMBA} bf16"]))
+             + pod_olmo["flash_attention"], flash_err),
             ("ssd_chunk_scan", "ssd_scan.cu", "ssd_scan.py:27",
              sum(zoo_run["prefill_launches"]["ssd_chunk_scan"]
-                 for zoo_run in (zoo["mamba2-130m bf16"], hybrid_zoo[f"{JAMBA} bf16"])),
-             ssd_err)):
+                 for zoo_run in (zoo["mamba2-130m bf16"], hybrid_zoo[f"{JAMBA} bf16"]))
+             + pod_ssm["ssd_chunk_scan"], ssd_err)):
         row = zoo_timing[name]
         kernels.append({
             "name": name,
@@ -4721,7 +5061,8 @@ def main() -> int:
         "launches": (train_step["launches"]["flash_attention_bwd"]
                      + moe_train["launches"]["flash_attention_bwd"]
                      + encdec_train["launches"]["flash_attention_bwd"]
-                     + hybrid_train["launches"]["flash_attention_bwd"]),
+                     + hybrid_train["launches"]["flash_attention_bwd"]
+                     + pod_olmo["flash_attention_bwd"]),
         "max_abs_err": bwd_err,
         "ms": bwd_timing["ms"],
         "plain_ms": bwd_timing["plain_ms"],
@@ -4735,7 +5076,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/models/mamba2.py:63",
         "launches": (ssm_train["launches"]["ssd_intra_chunk_bwd"]
-                     + hybrid_train["launches"]["ssd_intra_chunk_bwd"]),
+                     + hybrid_train["launches"]["ssd_intra_chunk_bwd"]
+                     + pod_ssm["ssd_intra_chunk_bwd"]),
         "max_abs_err": ssd_bwd_err,
         "ms": ssd_bwd_timing["ms"],
         "plain_ms": ssd_bwd_timing["plain_ms"],
@@ -4759,6 +5101,7 @@ def main() -> int:
         "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
         "train_reference": train_reference, "hierarchy_exactness": hier_exact,
         "hierarchy_round": hier_round, "hierarchy_lora": hier_lora, "stacked_reduce": stacked,
+        "pod_mesh": pod_mesh, "pod_round": pod,
         "live": live, "live_proc": live_proc,
         "soak": soak, "phase_s": PHASE_S,
         "seconds": time.monotonic() - t_start,

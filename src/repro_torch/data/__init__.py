@@ -4,13 +4,14 @@ from .federated_data import (
     make_classification_silos,
     make_lm_silos,
 )
-from .pipeline import SyntheticClassification, SyntheticLM
+from .pipeline import SyntheticClassification, SyntheticLM, batch_iterator
 
 __all__ = [
     "ClassificationSilo",
     "LMSilo",
     "SyntheticClassification",
     "SyntheticLM",
+    "batch_iterator",
     "make_classification_silos",
     "make_lm_silos",
 ]

@@ -1,2 +1,3 @@
-"""Step functions and the serving driver for the model zoo, the port of
-``repro.launch`` (prefill and serve so far)."""
+"""Step functions, the serving driver, the trainer, meshes and input
+specs for the model zoo, the port of ``repro.launch`` (all but the
+dry-run)."""

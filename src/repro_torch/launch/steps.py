@@ -22,7 +22,19 @@ import torch
 from ..configs.base import ModelConfig
 from ..models.api import ModelFamily
 from ..optim import make_optimizer
+from ..sharding.context import compute_mesh
 from ..utils.tree import tree_flatten, tree_map, tree_unflatten
+
+
+def with_compute_mesh(fn, mesh):
+    """``fn`` run under the compute-mesh context, so model code reads the
+    mesh (``models/moe.py``'s group count, ``scan_layers``)."""
+
+    def wrapped(*args):
+        with compute_mesh(mesh):
+            return fn(*args)
+
+    return wrapped
 
 
 def make_optimizer_for(cfg: ModelConfig):

@@ -34,7 +34,11 @@ Params = Dict[str, Any]
 def _normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
             dtype: torch.dtype, device) -> torch.Tensor:
     """Standard normal draws from ``gen`` times ``scale``, cast to
-    ``dtype`` on ``device`` (the reference's ``(normal(k, s) * c).astype``)."""
+    ``dtype`` on ``device`` (the reference's ``(normal(k, s) * c).astype``).
+    On the ``meta`` device nothing is drawn: an abstract init (shapes and
+    dtypes only, as the reference's ``jax.eval_shape``) allocates nothing."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * scale
     return x.to(device=device, dtype=dtype)
 
@@ -239,7 +243,11 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Par
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens]
+    """Rows of the table.  ``F.embedding``, not ``table[tokens]``: on the
+    CPU the indexing's gradient (an accumulating ``index_put_``) sums
+    repeated tokens in an order that changes from run to run, while the
+    embedding's backward is the same sum in a fixed order."""
+    return F.embedding(tokens, p["embedding"])
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -315,10 +323,15 @@ def scan_layers(body, init, xs, cfg: ModelConfig):
     along axis 0; returns ``(carry, ys)`` with the ``y_i`` stacked (``None``
     if the body returns ``None``).
 
-    The reference's FSDP gather and sequence-parallel constraints apply
-    only under a compute mesh; the port has none yet (``ROADMAP.md``
-    queue 1, item 14), so like the reference without a mesh this is the
-    plain scan.  ``cfg`` is kept for that signature."""
+    The reference adds FSDP gather and sequence-parallel constraints
+    under a compute mesh with ``cfg.fsdp`` or ``cfg.sequence_parallel``
+    set, and the plain scan otherwise.  The constraints choose where
+    values live and change none of them; the port's layers run on one
+    card's plain tensors, so with or without a compute mesh
+    (``sharding/context.py``) this is the same loop.
+    Multi-rank sharded execution (per-layer FSDP gathers, DTensor
+    activations through the kernels) needs more than one card and is not
+    ported (``ROADMAP.md``).  ``cfg`` is kept for the signature."""
     del cfg
     leaves, treedef = tree_flatten(xs)
     # One unbind a leaf, not an index a layer: the backward of ``a[i]`` is

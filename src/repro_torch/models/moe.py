@@ -1,10 +1,13 @@
 """Mixture-of-Experts layer, the port of ``repro/models/moe.py``: top-k
 token-choice routing with capacity-buffer dispatch.
 
-The reference views the tokens as (G, T_local, D), G the data-parallel
-group count of its compute mesh, 1 without one.  The port has no mesh yet
-(``ROADMAP.md`` queue 1, item 14), so G = 1 and the reference's sharding
-constraints are the identity.
+The tokens are viewed as G consecutive groups of T / G, G the "data"
+axis size of the compute mesh (``sharding/context.py``) when one is set
+and divides T, else 1, as the reference does.  Each group routes its own
+tokens into private capacity buffers: slots are counted within the group
+and the capacity follows from T / G, so G changes which assignments drop.
+The reference's sharding constraints (``cst``) change no value; on the
+port's plain tensors they are the identity and are left out.
 
 Routing follows the reference step for step: an fp32 softmax router, the
 top k experts a token with their gates renormalized to sum to 1, a
@@ -12,7 +15,7 @@ capacity of ``max(ceil(K·T/E·cf), min(T, 8))`` slots an expert, and each
 assignment's slot from the exclusive cumulative count of its expert in
 the flattened (token, k) order, so earlier assignments win a full expert
 and later ones drop.  A dropped assignment contributes zero.  The experts
-are SwiGLUs batched over (E, C, D) buffers; the shared experts
+are SwiGLUs batched over (E, G·C, D) buffers; the shared experts
 (deepseek-moe) a dense SwiGLU added to every token; the auxiliary loss
 the Switch load-balance term ``E·Σ frac·mean_prob / K``.
 
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding.context import axis_sizes, current_compute_mesh
 from .layers import Params, _normal, apply_mlp, init_mlp
 
 
@@ -79,20 +83,25 @@ def capacity_for(cfg: ModelConfig, n_tokens: int, capacity_factor: float) -> int
     return max(capacity, min(n_tokens, 8))
 
 
-def route(p: Params, x: torch.Tensor, cfg: ModelConfig, capacity_factor: float) -> Routing:
-    """x (T, D) -> each token's experts, gates and capacity slots."""
+def route(p: Params, x: torch.Tensor, cfg: ModelConfig, capacity_factor: float,
+          groups: int = 1) -> Routing:
+    """x (T, D) -> each token's experts, gates and capacity slots.  With
+    ``groups`` G the tokens are G consecutive groups of T / G: an
+    assignment's slot counts only its group's earlier assignments, and the
+    capacity is a group's."""
     E, K = cfg.n_experts, cfg.top_k
     probs = router_probs(p, x)
     gates, expert_idx = torch.topk(probs, K, dim=-1)
     # deepseek-moe renormalizes the top-k gates to sum to 1.
     gates = gates / gates.sum(-1, keepdim=True)
-    capacity = capacity_for(cfg, x.shape[0], capacity_factor)
+    capacity = capacity_for(cfg, x.shape[0] // groups, capacity_factor)
     flat = expert_idx.reshape(-1)
     # (E, A), so the count runs along the inner dim: on an H100, PyTorch's
     # scan along an outer dim of A = 65,536 rows took 353 ms of a 437 ms
-    # granite-moe-1b-a400m (4, 2048) prefill.
-    onehot = F.one_hot(flat, E).t().contiguous()
-    pos_in_expert = onehot.cumsum(1) - onehot                     # exclusive
+    # granite-moe-1b-a400m (4, 2048) prefill.  A group's assignments are a
+    # contiguous run of A / G.
+    onehot = F.one_hot(flat, E).t().contiguous().view(E, groups, -1)
+    pos_in_expert = (onehot.cumsum(2) - onehot).view(E, -1)       # exclusive
     pos = pos_in_expert.gather(0, flat[None, :])[0]
     return Routing(probs, gates, expert_idx, pos, pos < capacity, capacity)
 
@@ -153,20 +162,27 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
+    mesh = current_compute_mesh()
+    G = 1
+    if mesh is not None and T % axis_sizes(mesh).get("data", 1) == 0:
+        G = axis_sizes(mesh).get("data", 1)
 
-    r = route(p, xt, cfg, capacity_factor)
+    r = route(p, xt, cfg, capacity_factor, G)
     C = r.capacity
-    # Each assignment's row of the (E·C, D) buffers; E·C for a dropped one.
-    spare = torch.where(r.keep, r.expert_idx.reshape(-1) * C + r.pos, E * C)
+    # Each assignment's row of the (E, G·C, D) buffers, expert e's slots of
+    # group g at e·G·C + g·C; E·G·C for a dropped one.
+    group = torch.arange(T * K, device=x.device) // (T * K // G)
+    spare = torch.where(r.keep, r.expert_idx.reshape(-1) * (G * C) + group * C + r.pos,
+                        E * G * C)
 
     copies = xt[:, None, :].expand(T, K, D).reshape(T * K, D)     # token of each assignment
-    expert_in = _ToSlots.apply(copies, spare, E * C).view(E, C, D)
+    expert_in = _ToSlots.apply(copies, spare, E * G * C).view(E, G * C, D)
 
     # Expert FFN (SwiGLU) batched over the experts.
     h = F.silu(torch.bmm(expert_in, p["w_gate"])) * torch.bmm(expert_in, p["w_up"])
-    expert_out = torch.bmm(h, p["w_down"])                        # (E, C, D)
+    expert_out = torch.bmm(h, p["w_down"])                        # (E, G·C, D)
 
-    assign_out = _FromSlots.apply(expert_out.view(E * C, D), spare)
+    assign_out = _FromSlots.apply(expert_out.view(E * G * C, D), spare)
     weighted = assign_out * r.gates.reshape(T * K, 1).to(x.dtype)
     y = weighted.view(T, K, D).sum(1, dtype=torch.float32).to(x.dtype)
 

@@ -114,3 +114,25 @@ def test_trainer_and_server_default_to_the_card():
 
     for mod in (train, serve):
         assert 'ap.add_argument("--device", default="cuda"' in inspect.getsource(mod.main)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.sharding", "repro_torch.sharding.context", "repro_torch.sharding.rules",
+    "repro_torch.roofline", "repro_torch.roofline.analysis", "repro_torch.roofline.hardware",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs", "repro_torch.federated.pod_fedavg",
+])
+def test_the_pod_and_sharding_modules_are_scanned(module):
+    assert module in _modules()
+
+
+def test_pod_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch.data import batch_iterator
+    from repro_torch.federated import init_pod_state
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    assert inspect.signature(init_pod_state).parameters["device"].default == "cuda"
+    assert inspect.signature(batch_iterator).parameters["device"].default == "cuda"
+    for fn in (make_host_mesh, make_production_mesh):
+        assert inspect.signature(fn).parameters["device_type"].default == "cuda"
