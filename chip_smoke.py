@@ -41,6 +41,21 @@ or of the JAX package.  In order it:
      (``FemnistConfig()``, L = 164,187,070 parameters): 4 silos, 3 FedAvg
      rounds, client and server checkpoints, the server killed at round 3
      and restored from stable storage, message sizes measured;
+     Then ``examples/quickstart_torch.main`` at the paper's Shakespeare
+     width (``LSTMConfig()``): its Initial Mapping against the solver's,
+     3 silos, 6 barrier rounds (one ``fedavg_reduce`` each), the server
+     killed at round 4 and restored, the loss falling, each round split
+     into train, fold (the call and its kernel by CUDA events), eval and
+     checkpoint.  Then the ``Experiment`` builder:
+     ``Experiment.on(cloudlab_environment()).app(femnist_application(
+     n_rounds=3)).serve(...)`` over the five ``femnist_application()``
+     silos at the paper's width, 2 rounds (one ``fedavg_reduce`` a round)
+     and 2 with ``.aggregation(compression="int8")`` (5 ``dequant_fold``
+     a round), every fold within relative L2 2e-5 of the plain fold, each
+     kernel's device time beside its bound; then ``.simulate()`` of 100
+     rounds priced with the measured fold rate
+     (``make_measured_aggreg_fn``) and message sizes, beside the paper's
+     static ``aggreg_bl``;
   6. runs the compressed path at the same width: ``AsyncFLServer`` with
      int8 updates, 4 silos, 2 rounds, then one fp16 round, message sizes
      measured;
@@ -163,8 +178,10 @@ or of the JAX package.  In order it:
  21. runs the live transport at the paper's FEMNIST width: the five
      silos of ``femnist_application()`` as ``ThreadWorkerPool`` workers
      behind ``SocketTransport`` on loopback, int8 updates folded by
-     ``dequant_fold`` in this process (one launch a folded update), 3
-     ``LiveRoundDriver`` rounds under a ``FaultPlan`` (round 2: a crash
+     ``dequant_fold`` in this process (one launch a folded update), the
+     driver built by ``Experiment().aggregation(compression="int8")
+     .transport(kind="thread", ...).chaos(plan).serve(...)`` and its
+     settings checked, 3 ``LiveRoundDriver`` rounds under a ``FaultPlan`` (round 2: a crash
      and a corrupt frame; round 3: a revocation, moved to another VM by
      the §4.4 ``DynamicScheduler``, and a hang, found by heartbeats whose
      bound is sized from this run's GIL holds and dispatch time); each
@@ -4135,16 +4152,17 @@ def _gil_probe(fn) -> tuple:
     return out, wall, gaps[0]
 
 
-def _recording_transport():
-    """A ``SocketTransport`` that keeps every frame it sends (kind, silo,
-    payload bytes, seconds in ``sendall``, start) and every message it
-    receives (kind, silo, round, payload and wire bytes, time, and the
-    silo's reported train or eval time), and each silo's hello times."""
+def _recording_transport(**address):
+    """A ``SocketTransport`` (on ``address``: ``host``, ``port``) that keeps
+    every frame it sends (kind, silo, payload bytes, seconds in
+    ``sendall``, start) and every message it receives (kind, silo, round,
+    payload and wire bytes, time, and the silo's reported train or eval
+    time), and each silo's hello times."""
     from repro_torch.federated import SocketTransport
 
     class RecordingTransport(SocketTransport):
         def __init__(self):
-            super().__init__(send_timeout_s=120.0)
+            super().__init__(send_timeout_s=120.0, **address)
             self.sent, self.received, self.joined = [], [], {}
 
         def send(self, client_id, header, payload=b""):
@@ -4201,14 +4219,14 @@ class _Spans:
         self._undo.clear()
 
 
-def _fold_device_timer():
-    """Wrap the aggregator's ``dequant_fold`` call (the kernel wrapper,
-    which still counts its launches) in CUDA events: each fold's device
-    time.  Returns (events, undo)."""
+def _fold_device_timer(kernel: str = "dequant_fold"):
+    """Wrap the aggregator's call of ``kernel`` (``dequant_fold`` or
+    ``fedavg_reduce``: the kernel wrapper, which still counts its launches)
+    in CUDA events: each fold's device time.  Returns (events, undo)."""
     import torch
     from repro_torch.federated import agg_engine
 
-    orig, events = agg_engine.dequant_fold, []
+    orig, events = getattr(agg_engine, kernel), []
 
     def timed(*args, **kwargs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4218,10 +4236,44 @@ def _fold_device_timer():
         events.append((time.monotonic(), start, end))
         return out
 
-    agg_engine.dequant_fold = timed
+    setattr(agg_engine, kernel, timed)
 
     def undo():
-        agg_engine.dequant_fold = orig
+        setattr(agg_engine, kernel, orig)
+
+    return events, undo
+
+
+def _kernel_device_timer(module: str):
+    """CUDA events round the kernel's own launch in
+    ``repro_torch.kernels.<module>`` (the C entry point, called after the
+    wrapper has allocated its output): the kernel's device time alone,
+    where ``_fold_device_timer`` also counts the wrapper's host work
+    before the launch.  Returns (events, undo)."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    orig, events = mod._kernel_fn, []
+
+    def kernel_fn():
+        fn = orig()
+
+        def timed(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = fn(*args)
+            end.record()
+            events.append((start, end))
+            return err
+
+        return timed
+
+    mod._kernel_fn = kernel_fn
+
+    def undo():
+        mod._kernel_fn = orig
 
     return events, undo
 
@@ -4336,7 +4388,10 @@ def phase_live_round():
     dispatch it to five silos.  Round 1 is traced (the device's idle
     share) and replayed in process (``AsyncFLServer`` with a
     ``RecordedSchedule`` of its arrivals): params within 2e-5, equal
-    ``chaos_signature``."""
+    ``chaos_signature``.  The driver is built by
+    ``Experiment().aggregation(compression="int8").transport(kind="thread",
+    ...).chaos(plan).serve(...)``, and its settings are checked against the
+    ones this phase sets."""
     import dataclasses
     import itertools
     import socket
@@ -4344,12 +4399,12 @@ def phase_live_round():
 
     import torch
     from repro_torch.core import (
-        Assignment, CostModel, DynamicScheduler, cloudlab_environment, femnist_application)
+        Assignment, CostModel, DynamicScheduler, Experiment, cloudlab_environment,
+        femnist_application)
     from repro_torch.core.events import RevocationOccurred, RoundDispatched, UpdateArrived
     from repro_torch.federated import (
-        AsyncFLServer, ChaosClient, ClientArrival, FaultPlan, FaultSpec, LiveRoundDriver,
-        RecordedSchedule, ThreadWorkerPool, chaos_signature, compression, to_cost_model_sizes,
-        transport, verify_fault_pairing)
+        AsyncFLServer, ChaosClient, ClientArrival, FaultPlan, FaultSpec, RecordedSchedule,
+        chaos_signature, compression, to_cost_model_sizes, transport, verify_fault_pairing)
     from repro_torch.federated.compression import compressed_wire_bytes, parse_compression
     from repro_torch.federated.transport import recv_frame, send_frame
     from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
@@ -4379,15 +4434,11 @@ def phase_live_round():
 
     silos = _femnist_live_silos()
     cids = [s.client_id for s in silos]
-    plan = FaultPlan([
-        FaultSpec("crash", cids[1], 2), FaultSpec("corrupt_frame", cids[2], 2),
-        FaultSpec("revocation", cids[3], 3), FaultSpec("hang", cids[4], 3),
-    ], seed=0)
 
     class TimedChaosClient(ChaosClient):
         """Records when each of its faults fired."""
 
-        def __init__(self, inner):
+        def __init__(self, inner, plan):
             super().__init__(inner, plan, hang_s=LIVE_HANG_S)
             self.fired_at = {}
 
@@ -4396,6 +4447,17 @@ def phase_live_round():
             if f is not None:
                 self.fired_at[f.key] = time.monotonic()
             return f
+
+    class TimedPlan(FaultPlan):
+        """The plan; the builder's ``wrap_clients`` gives timed clients."""
+
+        def wrap_clients(self, clients):
+            return [TimedChaosClient(c, self) for c in clients]
+
+    plan = TimedPlan([
+        FaultSpec("crash", cids[1], 2), FaultSpec("corrupt_frame", cids[2], 2),
+        FaultSpec("revocation", cids[3], 3), FaultSpec("hang", cids[4], 3),
+    ], seed=0)
 
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     opt = make_optimizer("adamw", 1e-4)
@@ -4430,22 +4492,61 @@ def phase_live_round():
         f"silos training at once {warm_s:.3f} s (hold {train_gap * 1e3:.1f} ms); dispatch of {n_silos} ~ {dispatch_s:.3f} s; "
         f"heartbeat_timeout_s = 2 x dispatch + 10 x longest hold = {hb_timeout:.3f} s, "
         f"heartbeat_interval_s {hb_interval:.3f} s")
-    wrapped = [TimedChaosClient(c) for c in clients]
     env, app = cloudlab_environment(), femnist_application()
     placement = {"s": Assignment("vm_126", "on_demand")}
     for cid, vm in zip(cids, ("vm_112", "vm_121", "vm_135", "vm_211", "vm_221")):
         placement[cid] = Assignment(vm, "spot")
     placement0 = dict(placement)
     cm = CostModel(cloudlab_environment(), femnist_application(), 0.5)
+    scheduler = DynamicScheduler(CostModel(env, app, 0.5))
     estimate = dataclasses.asdict(app.messages)
-    rec = _recording_transport()
-    driver = LiveRoundDriver(
-        ThreadWorkerPool(wrapped, params0, compression="int8", device="cuda"), params0,
-        transport=rec, compression="int8", device="cuda",
-        reply_timeout_s=LIVE_REPLY_TIMEOUT_S, startup_timeout_s=120.0,
-        heartbeat_interval_s=hb_interval, heartbeat_timeout_s=hb_timeout,
-        scheduler=DynamicScheduler(CostModel(env, app, 0.5)), placement=placement,
-        cost_model=cm, chaos=plan)
+    # The builder makes the driver's SocketTransport; for this phase it is
+    # the recording one, on the builder's address.
+    built = []
+    orig_transport = transport.SocketTransport
+    transport.SocketTransport = lambda **address: built.append(
+        _recording_transport(**address)) or built[-1]
+    try:
+        driver = (Experiment()
+                  .aggregation(compression="int8")
+                  .transport(kind="thread", reply_timeout_s=LIVE_REPLY_TIMEOUT_S,
+                             startup_timeout_s=120.0, heartbeat_interval_s=hb_interval,
+                             heartbeat_timeout_s=hb_timeout)
+                  .chaos(plan)
+                  .serve(clients, params0, scheduler=scheduler, placement=placement,
+                         cost_model=cm, device="cuda"))
+    finally:
+        transport.SocketTransport = orig_transport
+    rec = built[0]
+    pool = driver.workers
+    wrapped = [pool._clients[cid] for cid in cids]
+    int8 = parse_compression("int8")
+    settings = {
+        "driver": type(driver).__name__, "pool": type(pool).__name__,
+        "transport": driver.transport is rec and (rec.host, rec.port) == ("127.0.0.1", 0),
+        "clients": [type(c).__name__ for c in wrapped],
+        "inner": all(w.inner is c for w, c in zip(wrapped, clients)),
+        "compression": (driver.compression, parse_compression(pool._compression)),
+        "reply_timeout_s": driver.reply_timeout_s, "startup_timeout_s": driver.startup_timeout_s,
+        "heartbeat": (driver.heartbeat_interval_s, driver.heartbeat_timeout_s),
+        "chaos": driver.chaos is plan, "scheduler": driver.scheduler is scheduler,
+        "placement": driver.placement is placement, "cost_model": driver.cost_model is cm,
+        "recovery": (driver._on_revocation, driver._max_rerequests),
+        "engine": (driver._engine.deadline, driver._engine.carry_discount,
+                   driver._engine.escalate_after),
+        "devices": {x.device.type for x in tree_leaves(driver.params)}
+        | {x.device.type for x in tree_leaves(pool._template)},
+    }
+    say(f"[live] the builder's driver: {settings}")
+    check(settings == {
+        "driver": "LiveRoundDriver", "pool": "ThreadWorkerPool", "transport": True,
+        "clients": ["TimedChaosClient"] * n_silos, "inner": True, "compression": (int8, int8),
+        "reply_timeout_s": LIVE_REPLY_TIMEOUT_S, "startup_timeout_s": 120.0,
+        "heartbeat": (hb_interval, hb_timeout), "chaos": True, "scheduler": True,
+        "placement": True, "cost_model": True, "recovery": ("rerequest", 1),
+        "engine": (None, 0.5, 2), "devices": {"cuda"}},
+        "Experiment...transport(kind='thread').chaos(plan).serve() builds the driver this "
+        "phase used to build by hand")
 
     round_t0, snap = {}, {}
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -4661,9 +4762,7 @@ def phase_live_process_round():
     from repro_torch.configs import get_config
     from repro_torch.core.events import RoundDispatched
     from repro_torch.federated import (
-        FaultPlan, FaultSpec, LiveRoundDriver, ProcessWorkerPool, agg_engine, compression,
-        transport)
-    from repro_torch.kernels.dequant_fold import dequant_fold_plain, f32_scalar
+        FaultPlan, FaultSpec, LiveRoundDriver, ProcessWorkerPool, transport)
     from repro_torch.models import get_model
     from repro_torch.utils.tree import tree_flatten
 
@@ -4696,23 +4795,13 @@ def phase_live_process_round():
                      emit_partial=False):
         report = engine_fold(round_idx, results, schedule, deadline=deadline,
                              base_params=base_params, emit_partial=emit_partial)
-        plan_ = agg_engine.plan_for(base_params)
-        base_flat = plan_.flatten(base_params)
-        lp = -(-plan_.total_elems // compression.QBLOCK) * compression.QBLOCK
-        acc = torch.zeros(lp, dtype=torch.float32, device="cuda")
-        by_id = {r.client_id: r for r in results}
-        wsum = 0.0
-        for ev in report.events:
-            u = by_id[ev.client_id].params
-            dequant_fold_plain(acc, u.data.to("cuda"), u.scales.to("cuda"), ev.folded_weight)
-            wsum += ev.folded_weight
-        want = plan_.unflatten(base_flat + acc[:plan_.total_elems] * f32_scalar(1.0 / wsum))
+        want = _plain_dequant_fold(report, results, base_params)
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(tree_flatten(report.params)[0], tree_flatten(want)[0]))
         fold_checks.append({"round": round_idx, "max_abs_err": err,
                             "order": [ev.client_id for ev in report.events],
                             "weights": [ev.folded_weight for ev in report.events]})
-        del base_flat, acc, want
+        del want
         return report
 
     driver._engine.fold_round = checked_fold
@@ -4912,6 +5001,291 @@ def phase_chaos_soak(ckpt_root: Path):
             "max_param_diff": diff}
 
 
+
+def phase_quickstart():
+    """``examples/quickstart_torch.main`` on the card at the paper's
+    Shakespeare width (``LSTMConfig()``: 80 characters, embedding 8, 2 x 256
+    LSTM): the Initial Mapping of ``til_application`` on ``cloudlab_environment``,
+    3 silos, 6 barrier rounds of ``FLServer`` with AdamW, client and server
+    checkpoints, the server killed at round 4 and restored.  The placement
+    must be the one the solver gives in this process with nothing on the
+    card, ``fedavg_reduce`` must launch once a round, round 4 must be
+    restored and the loss must fall."""
+    from repro_torch.core import InitialMapping, cloudlab_environment, til_application
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+    from repro_torch.models.fl_models import LSTMConfig
+    from repro_torch.utils.tree import tree_leaves
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch
+
+    cpu_sol = InitialMapping(cloudlab_environment(), til_application(n_rounds=10),
+                             alpha=0.5).solve()
+    lines, after_round = [], []
+    folds, undo = _fold_device_timer("fedavg_reduce")
+    kernel_ev, undo_kernel = _kernel_device_timer("fedavg_reduce")
+    zero_counts()
+    t0 = time.monotonic()
+    try:
+        out = quickstart_torch.main(
+            device="cuda", lc=LSTMConfig(), log=lines.append,
+            post_round_hook=lambda r, p: after_round.append(fedavg_reduce.launches))
+    finally:
+        undo_kernel()
+        undo()
+    wall = time.monotonic() - t0
+    launches = counts()
+    for line in "\n".join(lines).splitlines():
+        if line.strip():
+            say(f"[quickstart] {line}")
+    res = out.run
+    L = sum(x.numel() for x in tree_leaves(res.final_params))
+    n = len(out.clients)
+    nbytes = (n * L + L) * 4 + n * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fold_ms = [a.elapsed_time(b) for _, a, b in folds]
+    kernel_ms = [a.elapsed_time(b) for a, b in kernel_ev]
+    rounds = []
+    for r, ms, kms in zip(res.rounds, fold_ms, kernel_ms):
+        row = {"round": r.round_idx, "loss": r.metrics["loss"], "acc": r.metrics["acc"],
+               "train_s": r.train_time_s - r.agg_time_s, "fold_s": r.agg_time_s,
+               "fold_device_ms": ms, "kernel_ms": kms, "eval_s": r.eval_time_s,
+               "checkpoint_s": r.checkpoint_time_s, "restarted_from": r.restarted_from}
+        rounds.append(row)
+        say(f"[quickstart] round {r.round_idx}: train {row['train_s']:.3f} s, fold "
+            f"{row['fold_s'] * 1e3:.2f} ms (the fedavg_reduce call {ms:.4f} ms on the card, "
+            f"its kernel {kms:.4f} ms), eval "
+            f"{row['eval_s']:.3f} s, checkpoint {row['checkpoint_s']:.3f} s; loss "
+            f"{row['loss']:.4f}" + (f" (restored from {r.restarted_from})"
+                                    if r.restarted_from else ""))
+    say(f"[quickstart] LSTMConfig() L = {L:,}, {n} silos, {len(res.rounds)} rounds in "
+        f"{wall:.1f} s; fedavg_reduce launches after each round {after_round}; fold bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s); placement "
+        f"{ {k: v.vm_id for k, v in out.mapping.placement.items()} } (the solver with nothing "
+        f"on the card: equal {out.mapping.placement == cpu_sol.placement})")
+    check(out.mapping.placement == cpu_sol.placement
+          and out.mapping.evaluation.objective == cpu_sol.evaluation.objective,
+          "the quickstart's Initial Mapping is the solver's placement")
+    check(after_round == list(range(1, len(res.rounds) + 1))
+          and launches == dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": len(res.rounds)},
+          f"one fedavg_reduce launch a barrier round, nothing else: {after_round}, {launches}")
+    fault = quickstart_torch.FAULT_ROUND
+    check(res.rounds[fault - 1].restarted_from is not None
+          and all(r.restarted_from is None for r in res.rounds if r.round_idx != fault),
+          f"round {fault} restored from a checkpoint, no other")
+    check(all(math.isfinite(r["loss"]) for r in rounds)
+          and rounds[-1]["loss"] < rounds[0]["loss"], "the loss falls across the rounds")
+    check(all(x.is_cuda for x in tree_leaves(res.final_params)), "every parameter on cuda")
+    return {"launches": launches, "launches_after_round": after_round, "rounds": rounds,
+            "wall_s": wall, "n_params": L, "fold_bound_ms": bound_ms,
+            "placement": {k: v.vm_id for k, v in out.mapping.placement.items()}}
+
+
+EXPERIMENT_ROUNDS = 2     # phase_experiment's served rounds a chain
+EXPERIMENT_SIM_ROUNDS = 100   # femnist_application's rounds (§5.6.2) in the priced simulation
+
+
+def _plain_dequant_fold(report, results, base_params):
+    """The plain weighted fold (``dequant_fold_plain``) of a compressed
+    round's decoded deltas, in the report's fold order, onto its base."""
+    import torch
+    from repro_torch.federated import agg_engine, compression
+    from repro_torch.kernels.dequant_fold import dequant_fold_plain, f32_scalar
+
+    plan_ = agg_engine.plan_for(base_params)
+    lp = -(-plan_.total_elems // compression.QBLOCK) * compression.QBLOCK
+    acc = torch.zeros(lp, dtype=torch.float32, device="cuda")
+    by_id = {r.client_id: r for r in results}
+    wsum = 0.0
+    for ev in report.events:
+        u = by_id[ev.client_id].params
+        dequant_fold_plain(acc, u.data.to("cuda"), u.scales.to("cuda"), ev.folded_weight)
+        wsum += ev.folded_weight
+    return plan_.unflatten(plan_.flatten(base_params)
+                           + acc[:plan_.total_elems] * f32_scalar(1.0 / wsum))
+
+
+def phase_experiment():
+    """The ``Experiment`` builder at the paper's FEMNIST width on the card.
+    ``Experiment.on(cloudlab_environment()).app(femnist_application(n_rounds=3))``
+    serves the five ``femnist_application()`` silos (``FemnistConfig()``,
+    L = 164,187,070, random weights from seed 0, AdamW): 2 rounds with no
+    compression (the server it builds holds its weights on the card by
+    default; one ``fedavg_reduce`` a round, timed by CUDA events beside
+    its bound), then 2 rounds of the same chain with
+    ``.aggregation(compression="int8")`` (5 ``dequant_fold`` launches a
+    round).  Every fold is held against the plain fold of the same
+    updates (fp32, relative L2 2e-5).  Then the cost model is fed what the
+    card measured: the fold's rate (``make_measured_aggreg_fn`` over
+    ``AggStats.last_folded_bytes`` and the server's fold span) and the
+    message sizes (``to_cost_model_sizes(measure_messages(...))``), and
+    ``.simulate()`` prices 100 rounds beside the same chain with the
+    paper's static ``aggreg_bl``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import Experiment, cloudlab_environment, femnist_application
+    from repro_torch.federated import (
+        AsyncFLServer, make_measured_aggreg_fn, measure_messages, to_cost_model_sizes)
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = FemnistConfig()
+    env = cloudlab_environment()
+    chain = Experiment.on(env).app(femnist_application(n_rounds=3))
+    n = len(femnist_application().clients)
+
+    def flat(tree):
+        return torch.cat([x.reshape(-1).float() for x in tree_leaves(tree)])
+
+    def dense_plain(results):
+        """The plain weighted mean of the round's client trees, flat, fp32."""
+        w = {r.client_id: float(r.n_samples) for r in results}
+        acc = None
+        for r in results:
+            term = flat(r.params) * w[r.client_id]
+            acc = term if acc is None else acc.add_(term)
+        return acc / sum(w.values())
+
+    out = {}
+    for codec, kernel in ((None, "fedavg_reduce"), ("int8", "dequant_fold")):
+        ch = chain if codec is None else chain.aggregation(compression=codec)
+        clients = _femnist_clients(cfg, _femnist_live_silos(), make_optimizer("adamw", 1e-4),
+                                   "cuda")
+        params0 = init_femnist_cnn(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        check(sum(x.numel() for x in tree_leaves(params0)) == PAPER_L, "FEMNIST at L = PAPER_L")
+        after_round, spans, checks = [], [], []
+        server = ch.serve(clients, params0,
+                          post_round_hook=lambda r, p: after_round.append(counts()))
+        check(isinstance(server, AsyncFLServer) and server.device.type == "cuda"
+              and server._compression == (None if codec is None else
+                                          ch._compression),
+              f"serve() builds an AsyncFLServer on the card ({codec})")
+        engine_fold = server._round_engine.fold_round
+
+        def timed_fold(round_idx, results, schedule, deadline=None, base_params=None,
+                       emit_partial=False, engine_fold=engine_fold, spans=spans,
+                       checks=checks, codec=codec):
+            # The server's fold span (host clock, the card drained at both
+            # ends), then the check against the plain fold, outside the span
+            # and before the round's updates are dropped.
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            rep = engine_fold(round_idx, results, schedule, deadline=deadline,
+                              base_params=base_params, emit_partial=emit_partial)
+            torch.cuda.synchronize()
+            spans.append(time.monotonic() - t0)
+            want = (dense_plain(results) if codec is None
+                    else flat(_plain_dequant_fold(rep, results, base_params)))
+            checks.append(rel_l2(flat(rep.params), want))
+            return rep
+
+        server._round_engine.fold_round = timed_fold
+        folds, undo = _fold_device_timer(kernel)
+        kernel_ev, undo_kernel = _kernel_device_timer(kernel)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.monotonic()
+        try:
+            res = server.run(EXPERIMENT_ROUNDS)
+        finally:
+            undo_kernel()
+            undo()
+        wall = time.monotonic() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        fold_ms = [a.elapsed_time(b) for _, a, b in folds]
+        kernel_ms = [a.elapsed_time(b) for a, b in kernel_ev]
+        per_round = n if codec else 1
+        if codec is None:
+            nbytes = (n * PAPER_L + PAPER_L) * 4 + n * 4
+        else:
+            # int8 payload and its block scales read, the fp32 accumulator
+            # read and written, per launch.
+            nbytes = PAPER_L + -(-PAPER_L // 8192) * 4 + 2 * PAPER_L * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        folded_bytes = server.agg_engine.stats.last_folded_bytes
+        rounds = [{"round": r.round_idx, "loss": r.metrics["loss"], "acc": r.metrics["acc"],
+                   "train_s": r.train_time_s - r.agg_time_s, "fold_span_s": span,
+                   "agg_time_s": r.agg_time_s, "eval_s": r.eval_time_s}
+                  for r, span in zip(res.rounds, spans)]
+        tag = codec or "dense"
+        for row in rounds:
+            say(f"[experiment] {tag} round {row['round']}: loss {row['loss']:.4f} acc "
+                f"{row['acc']:.4f}; train {row['train_s']:.3f} s, fold span "
+                f"{row['fold_span_s'] * 1e3:.2f} ms (agg_time_s {row['agg_time_s']:.4f} s with "
+                f"the check), eval {row['eval_s']:.3f} s")
+        say(f"[experiment] {tag}: {EXPERIMENT_ROUNDS} rounds in {wall:.1f} s; launches after "
+            f"each round {[_nonzero(c) for c in after_round]}; the {kernel} calls on the "
+            "card (ms) " + ", ".join(f"{ms:.4f}" for ms in fold_ms)
+            + "; the kernel alone " + ", ".join(f"{ms:.4f}" for ms in kernel_ms)
+            + f" against a bound of {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s; "
+            f"median {bound_ms / statistics.median(kernel_ms):.1%} of it); folds against the "
+            f"plain fold, relative L2 " + ", ".join(f"{e:.2e}" for e in checks)
+            + f" (tol 2e-5); AggStats.last_folded_bytes {folded_bytes}; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        check([c[kernel] for c in after_round]
+              == [per_round * (i + 1) for i in range(EXPERIMENT_ROUNDS)]
+              and launches == dict.fromkeys(KERNELS, 0) | {kernel: per_round * EXPERIMENT_ROUNDS},
+              f"{per_round} {kernel} launch(es) a round, nothing else: {after_round}")
+        check(len(checks) == EXPERIMENT_ROUNDS and all(e <= 2e-5 for e in checks),
+              f"every {tag} fold within relative L2 2e-5 of the plain fold: {checks}")
+        check(all(math.isfinite(r["loss"]) for r in rounds), "finite losses")
+        check(all(x.is_cuda for x in tree_leaves(res.final_params)), "every parameter on cuda")
+        out[tag] = {"launches": launches, "rounds": rounds, "wall_s": wall,
+                    "fold_device_ms": fold_ms, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                    "bytes": nbytes,
+                    "fold_checks": checks, "last_folded_bytes": folded_bytes,
+                    "max_memory_allocated": peak}
+        if codec is None:
+            sizes = to_cost_model_sizes(measure_messages(res.final_params, {"acc": 0.0}))
+        del server, clients, res, params0
+        torch.cuda.empty_cache()
+
+    # The card's fold rate and the measured message sizes priced by the simulator.
+    dense = out["dense"]
+    span_s = min(r["fold_span_s"] for r in dense["rounds"])   # the warm round's
+    gb_per_s = dense["last_folded_bytes"] / span_s / 1e9
+    measured_fn = make_measured_aggreg_fn(env, dense["last_folded_bytes"], gb_per_s)
+    app = femnist_application(n_rounds=EXPERIMENT_SIM_ROUNDS)
+    measured_app = dataclasses.replace(app, messages=sizes)
+    sims = {
+        "paper": Experiment.on(env).app(app).simulate(),
+        "measured sizes, static aggreg_bl": Experiment.on(env).app(measured_app).simulate(),
+        "measured sizes and fold": (Experiment.on(env).app(measured_app)
+                                    .aggregation(aggreg_time_fn=measured_fn).simulate()),
+    }
+    priced = {}
+    for name, sim in sims.items():
+        ev = sim.initial_mapping.evaluation
+        server_vm = sim.initial_mapping.placement["s"].vm_id
+        priced[name] = {"mapping_round_s": ev.makespan_s, "makespan_s": sim.fl_exec_time_s,
+                        "round_s": sim.fl_exec_time_s / sim.rounds_completed,
+                        "cost": sim.total_cost, "rounds": sim.rounds_completed,
+                        "server_vm": server_vm}
+        say(f"[experiment] simulate ({name}): {sim.rounds_completed} rounds "
+            f"{sim.fl_exec_time_s:.3f} s, {priced[name]['round_s']:.4f} s a round (the "
+            f"Initial Mapping's modeled round {ev.makespan_s:.4f} s), cost "
+            f"${sim.total_cost:.4f}, server on {server_vm}")
+    server_vm = priced["measured sizes and fold"]["server_vm"]
+    say(f"[experiment] fold rate {gb_per_s:.1f} GB/s ({dense['last_folded_bytes']} B folded in "
+        f"the server's {span_s * 1e3:.2f} ms fold span, the shorter of the {EXPERIMENT_ROUNDS} "
+        f"rounds'); modeled aggregation on {server_vm} "
+        f"{measured_fn(server_vm) * 1e3:.3f} ms against aggreg_bl {app.aggreg_bl} s x "
+        f"{env.inst_slowdown(server_vm)}; measured messages {dataclasses.asdict(sizes)}, the "
+        f"paper's estimate {dataclasses.asdict(app.messages)}")
+    check(all(p["rounds"] == EXPERIMENT_SIM_ROUNDS and math.isfinite(p["makespan_s"])
+              and math.isfinite(p["cost"]) for p in priced.values()),
+          "every priced chain completes its rounds")
+    check(measured_fn(server_vm) < app.aggreg_bl * env.inst_slowdown(server_vm),
+          "the card's fold is faster than the paper's aggregation baseline")
+    out["priced"] = priced
+    out["gb_per_s"] = gb_per_s
+    out["measured_messages"] = dataclasses.asdict(sizes)
+    return out
+
+
 PHASE_S: dict = {}   # seconds each phase of main() took, in order
 
 
@@ -4959,6 +5333,8 @@ def main() -> int:
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_ckpt_") as d:
         path = timed(phase_main_path, Path(d))
+    quickstart = timed(phase_quickstart)
+    experiment = timed(phase_experiment)
     compressed = timed(phase_compressed_path)
     reference = timed(phase_reference_check)
     compressed_reference = timed(phase_compressed_reference_check)
@@ -4996,8 +5372,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:27",
-        # The barrier path's rounds, the stacked reduce and each model's pod round.
-        "launches": (path["launches"] + stacked["launches"]["fedavg_reduce"]
+        # The barrier path's rounds, the quickstart's, the builder's dense
+        # rounds, the stacked reduce and each model's pod round.
+        "launches": (path["launches"] + quickstart["launches"]["fedavg_reduce"]
+                     + experiment["dense"]["launches"]["fedavg_reduce"]
+                     + stacked["launches"]["fedavg_reduce"]
                      + pod_olmo["fedavg_reduce"] + pod_ssm["fedavg_reduce"]),
         "max_abs_err": main_err,
         "ms": timing["ms"],
@@ -5010,9 +5389,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dequant_fold.cu",
         "replaces": "src/repro/kernels/fedavg_reduce.py:70",
-        # The compressed path's int8 run, the hierarchy's routes and rounds,
-        # and both live phases' folds.
+        # The compressed path's int8 run, the builder's int8 rounds, the
+        # hierarchy's routes and rounds, and both live phases' folds.
         "launches": (compressed["int8"]["launches"]["dequant_fold"]
+                     + experiment["int8"]["launches"]["dequant_fold"]
                      + hier_exact["launches"]["dequant_fold"]
                      + hier_round["launches"]["dequant_fold"]
                      + hier_round["cohort_launches"]["dequant_fold"]
@@ -5089,6 +5469,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "sass_counts": sass, "ptxas": ptxas, "kernels": kernels, "timing": timing, "fold": fold, "path": path,
+        "quickstart": quickstart, "experiment": experiment,
         "reference": reference, "dequant_timing": dq_timing,
         "compressed_breakdown": compressed_split, "compressed_path": compressed,
         "compressed_reference": compressed_reference, "zoo_timing": zoo_timing, "zoo": zoo,

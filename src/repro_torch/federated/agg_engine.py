@@ -1,7 +1,6 @@
 """Fused FedAvg aggregation engine — the server's per-round hot path.
 
-The port of ``repro/federated/agg_engine.py`` but for
-``make_measured_aggreg_fn``.  At cross-silo model sizes the FedAvg
+The port of ``repro/federated/agg_engine.py``.  At cross-silo model sizes the FedAvg
 reduce is a pure memory-bound stream, so the engine's job is to touch
 every client byte once per round.  The barrier round (``aggregate``):
 
@@ -48,7 +47,9 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Any, ClassVar, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (
+    Any, Callable, ClassVar, Dict, List, Mapping, Optional, Sequence, Tuple, Union,
+)
 
 import numpy as np
 import torch
@@ -1619,3 +1620,35 @@ class StructuredStreamingAggregator:
         if self._engine is not None:
             self._engine.stats.n_calls += 1
         return tree_unflatten(self._plan.treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# Cost-accounting hook (simulator integration)
+# ---------------------------------------------------------------------------
+
+def make_measured_aggreg_fn(
+    env: Any,
+    bytes_per_round: int,
+    gb_per_s: float,
+    base_vm_id: Optional[str] = None,
+) -> Callable[[str], float]:
+    """Build a `CostModel.t_aggreg` override from a measured reduce rate.
+
+    ``bytes_per_round`` is the dense-equivalent byte volume the server
+    reduces each round (N clients x model bytes, e.g.
+    `AggStats.last_folded_bytes` — the reduce runs over dequantized fp32
+    regardless of what crossed the wire, so folded, not wire, bytes set
+    the aggregation time);
+    ``gb_per_s`` the measured engine bandwidth (the fold span a server
+    measured on its device).  The time scales with each VM's instance
+    slowdown exactly like the paper's `aggreg_bl` baseline does.
+    """
+    if gb_per_s <= 0:
+        raise ValueError("gb_per_s must be positive")
+    base_s = bytes_per_round / (gb_per_s * 1e9)
+    base_slow = env.inst_slowdown(base_vm_id) if base_vm_id is not None else 1.0
+
+    def t_aggreg(vm_id: str) -> float:
+        return base_s * env.inst_slowdown(vm_id) / base_slow
+
+    return t_aggreg

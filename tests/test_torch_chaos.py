@@ -1,9 +1,9 @@
 """The port's chaos harness against the reference's.
 
-Mirrors tests/test_chaos.py (all but its four ``test_builder_*`` tests,
-which wait for the port's ``Experiment`` builder; the driver is built
-directly, as ``Experiment().chaos(plan).transport(...).serve(...)``
-builds it in the reference): the seeded FaultPlan DSL, ChaosSchedule on
+Mirrors tests/test_chaos.py, its four ``test_builder_*`` tests on the
+port's ``Experiment`` (the other scenarios build the driver directly, as
+``Experiment().chaos(plan).transport(...).serve(...)`` builds it): the
+seeded FaultPlan DSL, ChaosSchedule on
 the virtual clock, ChaosClient and the LiveRoundDriver's chaos hooks on
 the wall clock, heartbeat liveness (hang is not slow), reconnect
 backoff, §4.4 cross-host VM replacement, and the soak: one plan, five
@@ -37,7 +37,7 @@ from repro.checkpoint import ClientCheckpointManager as JaxClientCkpt
 from repro.checkpoint import ServerCheckpointManager as JaxServerCkpt
 from repro.core.events import EventBus as JaxEventBus
 from repro_torch.checkpoint import ClientCheckpointManager, ServerCheckpointManager
-from repro_torch.core import Assignment, CostModel, DynamicScheduler
+from repro_torch.core import Assignment, CostModel, DynamicScheduler, Experiment
 from repro_torch.core.events import (
     EventBus,
     FaultInjected,
@@ -56,6 +56,7 @@ from repro_torch.federated import (
     DeterministicSchedule,
     FaultPlan,
     FaultSpec,
+    LiveRoundDriver,
     ReconnectPolicy,
     SocketTransport,
     chaos_signature,
@@ -428,6 +429,90 @@ def test_corrupt_frame_rerequests_over_live_connection():
     pairing = verify_fault_pairing(plan, driver.trace)
     assert pairing[("corrupt_frame", "c1", 1, "train")] == "recovered"
     assert len(live.rounds) == 2
+
+
+# ---------------------------------------------------------------------------
+# Builder surface (tests/test_chaos.py's test_builder_* tests)
+# ---------------------------------------------------------------------------
+
+def test_builder_validates_hardening_knobs():
+    with pytest.raises(ValueError, match="heartbeat_interval_s"):
+        Experiment().transport(heartbeat_interval_s=0.0)
+    with pytest.raises(ValueError, match="heartbeat_interval_s"):
+        Experiment().transport(heartbeat_interval_s=-1.0)
+    with pytest.raises(ValueError, match="heartbeat_timeout_s"):
+        Experiment().transport(heartbeat_interval_s=0.1,
+                               heartbeat_timeout_s=0.0)
+    with pytest.raises(ValueError, match="heartbeat_interval_s"):
+        Experiment().transport(heartbeat_timeout_s=0.5)
+    with pytest.raises(TypeError, match="ReconnectPolicy"):
+        Experiment().transport(reconnect=0.5)
+    with pytest.raises(TypeError, match="FaultPlan"):
+        Experiment().chaos("crash c0")
+
+
+def test_builder_rejects_chaos_outside_serve_targets():
+    plan = FaultPlan([FaultSpec("crash", "c0", 1)])
+    env = port_env(make_toy_env())
+    app = port_app(make_toy_app())
+    with pytest.raises(ValueError, match="serve"):
+        Experiment.on(env).app(app).chaos(plan).build()
+    clients = make_paced_clients({"c0": 0.0})
+    with pytest.raises(ValueError, match="thread"):
+        Experiment().chaos(plan).transport(kind="process").serve(
+            {"c0": lambda: clients[0]}, init_params(), device="cpu"
+        )
+
+
+def test_builder_wires_chaos_onto_both_serve_targets():
+    """As the reference's test, and the virtual-clock round against the
+    reference's chain: the same FaultInjected markers and params (1e-5)."""
+    from repro.core import Experiment as JaxExperiment
+
+    plan = FaultPlan([FaultSpec("slow", "c0", 1, delay_s=0.01)])
+    clients = make_paced_clients({"c0": 0.0})
+    # Virtual-clock target: the schedule is decorated and shares the bus.
+    server = Experiment().chaos(plan).serve(clients, init_params(), device="cpu")
+    assert isinstance(server, AsyncFLServer)
+    assert isinstance(server.schedule, ChaosSchedule)
+    assert server.schedule.bus is server.bus
+    sim = server.run(1)
+    markers = [e for e in server.bus.trace if isinstance(e, FaultInjected)]
+    assert [(m.kind, m.task) for m in markers] == [("slow", "c0")]
+    assert len(sim.rounds) == 1
+    jplan = JaxFaultPlan([JaxFaultSpec("slow", "c0", 1, delay_s=0.01)])
+    jserver = JaxExperiment().chaos(jplan).serve(jax_paced_clients({"c0": 0.0}),
+                                                 jax_init_params())
+    jsim = jserver.run(1)
+    assert chaos_signature(server.bus.trace) == jax_chaos_signature(jserver.bus.trace)
+    assert_params_close(sim.final_params, jsim.final_params)
+    # Live target: the plan lands on the driver and the clients are
+    # wrapped; serve-time kwargs still win over the builder chain.
+    driver = Experiment().chaos(plan).transport().serve(
+        clients, init_params(), device="cpu"
+    )
+    assert isinstance(driver, LiveRoundDriver)
+    assert driver.chaos is plan
+    assert type(driver.workers._clients["c0"]).__name__ == "ChaosClient"
+    driver.close()
+    override = FaultPlan([FaultSpec("slow", "c0", 2, delay_s=0.01)])
+    driver2 = Experiment().chaos(plan).transport().serve(
+        clients, init_params(), chaos=override, device="cpu"
+    )
+    assert driver2.chaos is override
+    driver2.close()
+
+
+def test_builder_passes_heartbeat_and_reconnect_through():
+    clients = make_paced_clients({"c0": 0.0})
+    policy = ReconnectPolicy(max_attempts=4)
+    driver = Experiment().transport(
+        heartbeat_interval_s=0.2, reconnect=policy
+    ).serve(clients, init_params(), device="cpu")
+    assert driver.heartbeat_interval_s == pytest.approx(0.2)
+    assert driver.heartbeat_timeout_s == pytest.approx(0.6)  # 3x default
+    assert driver.workers._reconnect is policy
+    driver.close()
 
 
 # ---------------------------------------------------------------------------

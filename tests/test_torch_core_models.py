@@ -179,3 +179,13 @@ def test_to_cost_model_sizes_equals_reference(log):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     # Always the wire size, never the dense equivalent.
     assert got.c_msg_train_gb == log["c_msg_train_bytes"] / 1e9
+
+
+def port_toy_env(**kw):
+    """``conftest.make_toy_env`` rebuilt from the port's classes."""
+    return port_env(make_toy_env(**kw))
+
+
+def port_toy_app(**kw):
+    """``conftest.make_toy_app`` rebuilt from the port's classes."""
+    return port_app(make_toy_app(**kw))

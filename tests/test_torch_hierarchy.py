@@ -1,8 +1,7 @@
 """The port's two-level aggregation hierarchy against the reference's.
 
-Mirrors tests/test_hierarchy.py (all but its three
-``test_experiment_hierarchy_*`` tests, which wait for the port's
-``Experiment``).  Both packages get the same numpy-seeded dyadic
+Mirrors tests/test_hierarchy.py, its three ``test_experiment_hierarchy_*``
+tests on the port's ``Experiment``.  Both packages get the same numpy-seeded dyadic
 trees (integers in [-128, 128) times 2^-6, integer weights 1-15: no sum
 of them rounds in fp32, nor in fp16 on the wire), so inside the port the
 hierarchical fold must be bit-equal to the flat one, as the reference
@@ -38,6 +37,7 @@ from repro.federated import hierarchy as jh
 from repro.federated.client import ClientResult as JaxResult
 from repro.federated.compression import CompressionSpec as JaxSpec
 from repro.federated.compression import compress as jax_compress
+from repro_torch.core import Experiment
 from repro_torch.core.control_plane import HierarchyAPI
 from repro_torch.core.events import EventBus, PartialFolded, RegionClosed
 from repro_torch.federated import async_server as ta
@@ -820,6 +820,56 @@ def test_hierarchical_server_params_follow_the_device_asked_for():
 
     from repro_torch.federated.server import FLServer
     assert inspect.signature(FLServer).parameters["device"].default == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# Experiment builder surface
+# ---------------------------------------------------------------------------
+
+def test_experiment_hierarchy_serves_hierarchical_server():
+    """The reference's test, and the reference's chain on the same draws:
+    params within 1e-6 and equal traces."""
+    from repro.core import Experiment as JaxExperiment
+
+    tres, jres = dyadic_results(6, seed=101)
+    tinit, jinit = dyadic_base(102)
+    server = (
+        Experiment()
+        .hierarchy(regions=3, cohort=th.CohortSampler(size=4, seed=2))
+        .serve([_Stub(r) for r in tres], tinit, fold_cost_s=0.25, device="cpu")
+    )
+    assert isinstance(server, th.HierarchicalFLServer)
+    assert server.region_ids == ["region0", "region1", "region2"]
+    run = server.run(2)
+    assert len(run.rounds) == 2
+    jserver = (
+        JaxExperiment()
+        .hierarchy(regions=3, cohort=jh.CohortSampler(size=4, seed=2))
+        .serve([StubClient(r) for r in jres], jinit, fold_cost_s=0.25)
+    )
+    jrun = jserver.run(2)
+    assert_close_to_jax(run.final_params, jrun.final_params)
+    assert _server_trace(server.bus) == _server_trace(jserver.bus)
+
+
+def test_experiment_hierarchy_validates_at_chain_time():
+    with pytest.raises(ValueError, match="at least one region"):
+        Experiment().hierarchy(regions=0)
+    with pytest.raises(TypeError, match="regions"):
+        Experiment().hierarchy(regions=True)
+    with pytest.raises(ValueError, match="empty"):
+        Experiment().hierarchy(regions={})
+    with pytest.raises(ValueError, match="fraction"):
+        Experiment().hierarchy(regions=2, cohort=2.0)
+
+
+def test_experiment_hierarchy_rejected_off_target():
+    with pytest.raises(ValueError, match="in-process"):
+        Experiment().transport().hierarchy(2).serve([], {}, device="cpu")
+    env_needed = Experiment().hierarchy(2)
+    with pytest.raises(ValueError):
+        env_needed.build()  # simulator target refuses (no env, and no
+        #                     hierarchy support even with one)
 
 
 def test_structured_hierarchy_matches_dense_hierarchy():

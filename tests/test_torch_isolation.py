@@ -58,6 +58,37 @@ def test_no_forbidden_import_in_source(module):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
 
 
+EXAMPLE = SRC.parent / "examples" / "quickstart_torch.py"
+
+
+def test_quickstart_example_loads_no_forbidden_package():
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('quickstart_torch', {str(EXAMPLE)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=dict(os.environ), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_quickstart_example_imports_no_forbidden_package_in_source():
+    tree = ast.parse(EXAMPLE.read_text(), filename=str(EXAMPLE))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{EXAMPLE}:{node.lineno} {name}"
+
+
 def test_chip_smoke_imports_no_forbidden_package():
     path = SRC.parent / "chip_smoke.py"
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -87,6 +118,46 @@ def test_entry_points_default_to_the_card():
                ProcessWorkerPool.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("quickstart_torch", EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    assert inspect.signature(example.main).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("chain", ["barrier", "hierarchy", "thread transport"])
+def test_servers_the_builder_makes_default_to_the_card(chain):
+    """``Experiment.serve`` without ``device=`` leaves each server's own
+    default, the card: with no card the server cannot be built, and with
+    one its weights land there."""
+    import torch
+
+    from repro_torch.core import Experiment
+    from repro_torch.federated.client import ClientResult, EvalResult
+
+    class Stub:
+        client_id = "c0"
+
+        def train(self, params):
+            return ClientResult("c0", params, 1, 0.0)
+
+        def evaluate(self, params):
+            return EvalResult("c0", {}, 1, 0.0)
+
+    exp = {"barrier": Experiment(), "hierarchy": Experiment().hierarchy(regions=1),
+           "thread transport": Experiment().transport()}[chain]
+    params = {"w": torch.zeros(3)}
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            exp.serve([Stub()], params)
+        return
+    server = exp.serve([Stub()], params)
+    assert server.params["w"].is_cuda
+    if chain == "thread transport":
+        assert server.workers._template["w"].is_cuda
+        server.close()
+
 
 @pytest.mark.parametrize("module", [
     "repro_torch.launch.train", "repro_torch.launch.steps", "repro_torch.optim.optimizers",
@@ -114,6 +185,15 @@ def test_trainer_and_server_default_to_the_card():
 
     for mod in (train, serve):
         assert 'ap.add_argument("--device", default="cuda"' in inspect.getsource(mod.main)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.pre_scheduling", "repro_torch.core.initial_mapping",
+    "repro_torch.core.fault_tolerance", "repro_torch.core.autopilot",
+    "repro_torch.core.simulator", "repro_torch.core.control_plane",
+])
+def test_the_resource_manager_modules_are_scanned(module):
+    assert module in _modules()
 
 
 @pytest.mark.parametrize("module", [

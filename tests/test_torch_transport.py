@@ -1,8 +1,10 @@
 """The port's wall-clock socket transport against the reference's.
 
-Mirrors tests/test_transport.py (all but its four ``test_builder_*``
-tests, which wait for the port's ``Experiment`` builder; the driver is
-built directly here).  Each scenario's live run is held against the
+Mirrors tests/test_transport.py, its four ``test_builder_*`` tests on the
+port's ``Experiment`` (the other scenarios build the driver directly, as
+the builder does; ``test_builder_live_target_matches_the_reference_chain``
+serves one chain from both packages).  Each scenario's live run is held
+against the
 port's in-process ``AsyncFLServer`` as the reference's test holds its
 own, and where the reference's test does so, also against the
 reference's ``AsyncFLServer`` on the same clients: trace signatures
@@ -18,7 +20,10 @@ Sizing against a loaded machine (the suite runs under ``-n 6``): every
 client is warmed up before a timed round; a reply timeout is at least
 100x the work of the silo it must not catch (a few ms of training on a
 3-weight model), and a silo that must miss it sleeps at least a second
-past it; assertions read the recorded schedule and the events.
+past it; assertions read the recorded schedule and the events.  Where
+a test needs c0's reply before c1's, c1 trains only after the driver has
+taken c0's reply off its transport (``ordered_transport``), never after
+a sleep.
 """
 import dataclasses
 import socket
@@ -35,10 +40,11 @@ from repro.federated import DeterministicSchedule as JaxDeterministic
 from repro.federated.async_server import ArrivalSchedule as JaxArrivalSchedule
 from repro.federated.async_server import ClientArrival as JaxArrival
 from repro.federated.transport import LiveRoundDriver as JaxDriver
+from repro.federated.transport import SocketTransport as JaxSocketTransport
 from repro.federated.transport import recv_frame as jax_recv_frame
 from repro.federated.transport import run_client_worker as jax_run_client_worker
 from repro.federated.transport import send_frame as jax_send_frame
-from repro_torch.core import CostModel
+from repro_torch.core import CostModel, Experiment
 from repro_torch.core.events import (
     DeadlineExpired,
     RevocationOccurred,
@@ -59,7 +65,12 @@ from repro_torch.federated import (
     ThreadWorkerPool,
 )
 from repro_torch.federated.async_server import ArrivalSchedule, ClientArrival
-from repro_torch.federated.transport import recv_frame, run_client_worker, send_frame
+from repro_torch.federated.transport import (
+    MSG_C_TRAIN,
+    recv_frame,
+    run_client_worker,
+    send_frame,
+)
 from repro_torch.optim import make_optimizer
 from test_torch_core_models import port_app, port_env
 
@@ -98,10 +109,9 @@ class PacedClient(FLClient):
         self._attempts = 0
         self._eval_attempts = 0
         # Deterministic cross-silo ordering under any machine load: a
-        # client acquires its semaphore before training and releases the
-        # other's after.
+        # client acquires its semaphore before training; the driver's
+        # transport releases it (``ordered_transport``).
         self.acquire_sem = None
-        self.release_sem = None
 
     def warm_up(self, params):
         """One train and one evaluate outside the attempt counts, so no
@@ -116,16 +126,12 @@ class PacedClient(FLClient):
             raise RuntimeError("silo VM revoked (injected)")
         if self.acquire_sem is not None:
             assert self.acquire_sem.acquire(timeout=60.0)
-            time.sleep(0.05)  # let the releaser's reply hit the wire first
         delay = self.delay_s
         if not isinstance(delay, (int, float)):
             delay = delay[min(self._attempts, len(delay)) - 1]
         if delay:
             time.sleep(delay)
-        result = super().train(global_params)
-        if self.release_sem is not None:
-            self.release_sem.release()
-        return result
+        return super().train(global_params)
 
     def evaluate(self, aggregated_params):
         self._eval_attempts += 1
@@ -182,11 +188,31 @@ def jax_init_params():
     return jax_init()
 
 
-def chain_replies(first, second):
-    """Force ``second``'s c_msg_train after ``first``'s every round."""
+def ordered_transport(base, first, second):
+    """A ``base`` transport (either package's ``SocketTransport``) on which
+    ``second`` trains only after the driver has recorded ``first``'s
+    c_msg_train, every round: ``second`` waits on a semaphore before
+    training, and the transport releases it when the driver polls again
+    after the batch that carried ``first``'s reply (so the driver has taken
+    that reply's arrival time).  No sleep orders the two."""
     sem = threading.Semaphore(0)
-    first.release_sem = sem
     second.acquire_sem = sem
+    first_id = str(first.client_id)
+
+    class Ordered(base):
+        released_next_poll = False
+
+        def poll(self, timeout_s):
+            if self.released_next_poll:
+                self.released_next_poll = False
+                sem.release()
+            events = super().poll(timeout_s)
+            if any(ev.kind == "message" and ev.client_id == first_id
+                   and ev.header.get("kind") == MSG_C_TRAIN for ev in events):
+                self.released_next_poll = True
+            return events
+
+    return Ordered()
 
 
 def live_driver(clients, *, chaos=None, reconnect=None, compression=None, device="cpu",
@@ -259,8 +285,8 @@ def test_loopback_run_matches_in_process_async_server():
     reference."""
     delays = {"c0": 0.0, "c1": 0.0}
     clients = make_paced_clients(delays)
-    chain_replies(clients[0], clients[1])  # c0's reply always lands first
-    driver = live_driver(clients, reply_timeout_s=60.0)
+    driver = live_driver(clients, reply_timeout_s=60.0,  # c0's reply always lands first
+                         transport=ordered_transport(SocketTransport, clients[0], clients[1]))
     assert isinstance(driver, LiveRoundDriver)
     with driver:
         live = driver.run(2)
@@ -290,8 +316,8 @@ def test_loopback_survives_injected_crash_via_rerequest():
     revocation do."""
     delays = {"c0": 0.0, "c1": 0.0}
     clients = make_paced_clients(delays, crash_on={"c1": (1,)})
-    chain_replies(clients[0], clients[1])  # c1's re-request lands after c0
-    driver = live_driver(clients, reply_timeout_s=60.0)
+    driver = live_driver(clients, reply_timeout_s=60.0,  # c1's re-request lands after c0
+                         transport=ordered_transport(SocketTransport, clients[0], clients[1]))
     with driver:
         live = driver.run(2)
 
@@ -403,6 +429,83 @@ def test_measured_message_sizes_feed_cost_model():
     assert cm.app.messages.s_msg_train_gb == pytest.approx(log.s_msg_train_bytes / 1e9)
     assert cm.app.messages.c_msg_test_gb == pytest.approx(log.c_msg_test_bytes / 1e9)
     assert cm.cost_max() != cost_max_before
+
+
+# ---------------------------------------------------------------------------
+# Builder surface (tests/test_transport.py's test_builder_* tests)
+# ---------------------------------------------------------------------------
+
+def test_builder_transport_validation():
+    with pytest.raises(ValueError, match="kind"):
+        Experiment().transport(kind="carrier-pigeon")
+    with pytest.raises(ValueError, match="on_revocation"):
+        Experiment().transport(on_revocation="retry-forever")
+    with pytest.raises(ValueError, match="reply_timeout_s"):
+        Experiment().transport(reply_timeout_s=0.0)
+    with pytest.raises(ValueError, match="max_rerequests"):
+        Experiment().transport(max_rerequests=-1)
+
+
+def test_builder_rejects_schedule_with_transport():
+    clients = make_paced_clients({"c0": 0.0})
+    with pytest.raises(ValueError, match="virtual-clock"):
+        Experiment().transport().serve(
+            clients, init_params(), schedule=DeterministicSchedule(0.0), device="cpu"
+        )
+
+
+def test_builder_transport_worker_kind_type_guards():
+    clients = make_paced_clients({"c0": 0.0})
+    with pytest.raises(TypeError, match="factory"):
+        Experiment().transport(kind="process").serve(clients, init_params(), device="cpu")
+    with pytest.raises(TypeError, match="FLClient objects"):
+        Experiment().transport(kind="thread").serve(
+            {"c0": lambda: clients[0]}, init_params(), device="cpu"
+        )
+    with pytest.raises(TypeError, match="transport"):
+        Experiment().serve({"c0": lambda: clients[0]}, init_params(), device="cpu")
+
+
+def test_builder_chains_do_not_alias_transport():
+    base = Experiment()
+    with_transport = base.transport()
+    assert base._transport is None
+    assert with_transport._transport is not None
+    # A later setter on the transported chain keeps the transport.
+    assert with_transport.rounds(3)._transport is not None
+
+
+def test_builder_live_target_matches_the_reference_chain():
+    """The same chain, ``.transport(reply_timeout_s=60).aggregation(
+    compression="int8")``, served by both packages: the port's driver and
+    pool take the chain's settings and ``device=``, and two loopback rounds
+    give the reference's params (1e-5), message logs and trace signature."""
+    from repro.core import Experiment as JaxExperiment
+
+    delays = {"c0": 0.0, "c1": 0.0}
+    clients = make_paced_clients(delays)
+    driver = (Experiment().transport(reply_timeout_s=60.0).aggregation(compression="int8")
+              .serve(clients, init_params(), device="cpu"))
+    assert isinstance(driver, LiveRoundDriver) and isinstance(driver.workers, ThreadWorkerPool)
+    assert driver.reply_timeout_s == 60.0 and driver.compression.codec == "int8"
+    assert driver.params["w"].device.type == "cpu"
+    assert driver.workers._template["w"].device.type == "cpu"
+    driver.transport = ordered_transport(SocketTransport, clients[0], clients[1])
+    with driver:
+        res = driver.run(2)
+
+    from test_transport import make_paced_clients as jax_make
+
+    jclients = jax_make(delays)
+    jdriver = (JaxExperiment().transport(reply_timeout_s=60.0).aggregation(compression="int8")
+               .serve(jclients, jax_init_params()))
+    jdriver.transport = ordered_transport(JaxSocketTransport, jclients[0], jclients[1])
+    with jdriver:
+        jres = jdriver.run(2)
+    assert_params_close(res.final_params, jres.final_params)
+    assert [dataclasses.asdict(r.message_log) for r in res.rounds] == \
+        [dataclasses.asdict(r.message_log) for r in jres.rounds]
+    assert trace_signature(driver.trace) == trace_signature(jdriver.trace)
 
 
 # ---------------------------------------------------------------------------
@@ -573,11 +676,14 @@ def test_send_frame_is_byte_equal_across_packages(name):
 
 class MixedPool:
     """A WorkerPool whose cohort runs each package's worker loop: each
-    silo is ``(run_client_worker, client, template)`` on a thread."""
+    silo is ``(run_client_worker, client, template)`` on a thread.
+    ``order`` is the (first, second) pair whose replies the driver's
+    transport orders."""
 
-    def __init__(self, workers, compression=None):
+    def __init__(self, workers, compression=None, order=None):
         self._workers = dict(workers)
         self._compression = compression
+        self.order = order
         self._threads = []
 
     @property
@@ -621,23 +727,22 @@ def _mixed_workers(jax_ids, codec):
         JaxFLClient.train(c, jax_init_params())
         JaxFLClient.evaluate(c, jax_init_params())
     chosen = {cid: (ref if cid in jax_ids else port)[cid] for cid in delays}
-    sem = threading.Semaphore(0)
-    chosen["c0"].release_sem = sem
-    chosen["c1"].acquire_sem = sem
     workers = {}
     for cid, client in chosen.items():
         if cid in jax_ids:
             workers[cid] = (jax_run_client_worker, client, jax_init_params())
         else:
             workers[cid] = (run_client_worker, client, init_params())
-    return MixedPool(workers, compression=codec)
+    return MixedPool(workers, compression=codec, order=(chosen["c0"], chosen["c1"]))
 
 
 def _run_driver(kind, pool, codec):
     if kind == "reference":
-        driver = JaxDriver(pool, jax_init_params(), reply_timeout_s=60.0, compression=codec)
+        driver = JaxDriver(pool, jax_init_params(), reply_timeout_s=60.0, compression=codec,
+                           transport=ordered_transport(JaxSocketTransport, *pool.order))
     else:
         driver = LiveRoundDriver(pool, init_params(), reply_timeout_s=60.0, compression=codec,
+                                 transport=ordered_transport(SocketTransport, *pool.order),
                                  device="cpu")
     with driver:
         res = driver.run(2)
