@@ -198,7 +198,16 @@ or of the JAX package.  In order it:
      weighted fold of the same decoded deltas;
  23. runs ``tests/test_chaos.py``'s soak at its toy size with tensors on
      the card: five rounds, all seven fault kinds, the live and the
-     virtual-clock drivers' signatures, pairing and folded weight.
+     virtual-clock drivers' signatures, pairing and folded weight;
+ 24. runs the dry-run, ``python -m repro_torch.launch.dryrun``, over the
+     ten architectures x four shapes on the 16x16 and the 2x16x16 mesh
+     (one child process an architecture and mesh, on the host's cores;
+     ``meta`` tensors, nothing on the card): every row in the reference's
+     schema with finite, positive terms, whisper-small x long_500k the one
+     SKIP, ``n_params`` equal to the models built on the card, the
+     extrapolated FLOPs and bytes equal to direct full-depth counts, and
+     for each prefill and train step timed above its counted TFLOP/s and
+     model-FLOP share.
 For each path every kernel's launch count is set to 0 just before and
 read just after.
 
@@ -218,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -5286,6 +5296,221 @@ def phase_experiment():
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# The dry-run (launch/dryrun.py): every (arch x shape) step counted on meta
+# tensors for the production mesh, in child processes on the host's cores
+# ---------------------------------------------------------------------------
+
+# What launch/dryrun.py writes a row (the reference's RooflineReport.to_row()
+# keys, those its run_dryrun adds, and peak_memory_counts).
+DRYRUN_ROW_KEYS = {
+    "arch", "shape", "mesh", "chips", "hlo_flops", "hlo_bytes", "collective_bytes",
+    "compute_s", "memory_s", "collective_s", "dominant", "model_flops", "useful_ratio",
+    "peak_memory_per_chip", "n_params", "n_params_active", "n_tokens", "lower_s", "compile_s",
+    "collective_counts", "fits", "kind", "peak_memory_counts"}
+DRYRUN_TERMS = ("hlo_flops", "hlo_bytes", "collective_bytes", "compute_s", "memory_s",
+                "collective_s", "model_flops", "useful_ratio", "peak_memory_per_chip")
+# Held against a direct count of the full-depth step over their shapes
+# (jamba's multi-pod round is left out: its direct count alone takes minutes).
+DRYRUN_DIRECT = ("olmo-1b", "mamba2-130m", "granite-moe-1b-a400m", "whisper-small")
+DRYRUN_DIRECT_POD = ("olmo-1b", "mamba2-130m")
+# The full-width prefills and train steps timed on the card, as (kind, arch,
+# config overrides, batch, seq), counted again on their meta twins.
+DRYRUN_TWINS = (
+    ("prefill", "olmo-1b", None, PREFILL_B, PREFILL_S),
+    ("prefill", "mamba2-130m", None, PREFILL_B, PREFILL_S),
+    ("prefill", "granite-moe-1b-a400m", None, PREFILL_B, PREFILL_S),
+    ("prefill", "deepseek-moe-16b", None, PREFILL_B, PREFILL_S),
+    ("prefill", "whisper-small", None, WHISPER_B, WHISPER_S),
+    ("prefill", JAMBA, JAMBA_SERVE_CUT, PREFILL_B, PREFILL_S),
+    ("train", "olmo-1b", None, TRAIN_B, TRAIN_S),
+    ("train", "mamba2-130m", None, SSM_B, PREFILL_S),
+    ("train", "granite-moe-1b-a400m", None, TRAIN_B, PREFILL_S),
+    ("train", "whisper-small", None, WHISPER_B, WHISPER_S),
+    ("train", JAMBA, JAMBA_TRAIN_CUT, 1, PREFILL_S),
+)
+
+
+def _dryrun_direct(arch: str, multi_pod: bool, path: str) -> None:
+    """In a child process: the per-chip counts of ``arch``'s full-depth
+    steps, counted directly (``_costs_of`` of ``_probe_cfg(cfg,
+    cfg.n_layers)``, the depth the probes extrapolate to), over its shapes
+    or (``multi_pod``) its multi-pod train_4k round; JSON to ``path``."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for shape in (["train_4k"] if multi_pod else list(INPUT_SHAPES)):
+        try:
+            cfg = dryrun.resolved_config(arch, shape)
+        except dryrun.SkipShape:
+            continue
+        t0 = time.monotonic()
+        c = dryrun._costs_of(dryrun._probe_cfg(cfg, cfg.n_layers), shape, multi_pod,
+                             dryrun.LOCAL_STEPS)
+        out[shape] = {"flops": c["flops"], "bytes": c["bytes"], "s": time.monotonic() - t0}
+    Path(path).write_text(json.dumps(out))
+
+
+def _dryrun_twins(path: str) -> None:
+    """In a child process: each of DRYRUN_TWINS's steps counted on ``meta``
+    tensors (``_costs_of`` with an ``InputShape``, the 16x16 mesh's counts
+    times its 256 chips: the whole step), with its active parameters and
+    model FLOPs; JSON to ``path``."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    from repro_torch.roofline import model_flops_estimate
+
+    out = []
+    for kind, arch, overrides, batch, seq in DRYRUN_TWINS:
+        cfg = get_config(arch).with_overrides(microbatches=1, **(overrides or {}))
+        shape = InputShape(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        c = dryrun._costs_of(cfg, shape, False, dryrun.LOCAL_STEPS)
+        n_active = dryrun._active_params(cfg, dryrun._abstract_params(get_model(cfg)))
+        out.append({"kind": kind, "arch": arch, "cut": overrides, "batch": batch, "seq": seq,
+                    "flops": c["flops"] * 256, "bytes": c["bytes"] * 256,
+                    "n_active": n_active,
+                    "model_flops": model_flops_estimate(
+                        n_active, batch * seq, "train" if kind == "train" else "infer")})
+    Path(path).write_text(json.dumps(out))
+
+
+def _run_child(job: tuple) -> tuple:
+    """One child process ``(name, argv, log path)`` to its end (killed
+    after 600 s), its output in the log; (name, exit code, seconds)."""
+    name, argv, log = job
+    t0 = time.monotonic()
+    with open(log, "w") as fh:
+        rc = subprocess.run(argv, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=fh, stderr=subprocess.STDOUT, timeout=600).returncode
+    return name, rc, time.monotonic() - t0
+
+
+def phase_dryrun(card_params: dict, card_s: dict) -> dict:
+    """``python -m repro_torch.launch.dryrun`` over all ten architectures x
+    four shapes, on the 16x16 and the 2x16x16 mesh, as a user runs it: one
+    child process an architecture and mesh (``--arch A [--multi-pod]
+    --json``), as many at once as the host has cores, the longest first,
+    beside the direct full-depth counts (``_dryrun_direct``) and the timed
+    steps' meta twins (``_dryrun_twins``), each in a child of its own.  The
+    counting runs on the host; nothing touches the card.
+
+    Checks: every child exits 0 with no FAIL; each mesh gives one row per
+    combination but whisper-small x long_500k, which is a SKIP; every row
+    has the reference's keys plus ``peak_memory_counts``, and every term
+    finite and positive; ``n_params`` equals the count of each model the
+    zoo phases built on the card (``card_params``); the extrapolated FLOPs
+    and bytes equal the direct full-depth counts within relative 1e-9.
+    Prints one ``[dryrun]`` line a row, and for each step the card timed
+    (``card_s``: median seconds) its counted TFLOP/s and its model-FLOP
+    share, model FLOPs / (seconds x 989 TFLOP/s).  Those are prints, not
+    checks."""
+    from repro_torch.configs import ARCHITECTURES, INPUT_SHAPES
+
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*"):
+        old.unlink()
+    py = sys.executable
+    # jamba first: its multi-pod round's four probes are the longest child.
+    archs = sorted(ARCHITECTURES, key=lambda a: (a != JAMBA, a))
+    jobs = []
+    for multi_pod in (True, False):
+        mesh = "multi" if multi_pod else "single"
+        for arch in archs:
+            jobs.append((f"sweep {mesh} {arch}",
+                         [py, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--json",
+                          str(out_dir / f"{mesh}_{arch}.jsonl")]
+                         + (["--multi-pod"] if multi_pod else []),
+                         out_dir / f"{mesh}_{arch}.log"))
+        if multi_pod:
+            jobs.append(("twins", [py, "-c", f"import chip_smoke; chip_smoke._dryrun_twins("
+                                             f"{str(out_dir / 'twins.json')!r})"],
+                         out_dir / "twins.log"))
+    for multi_pod, names in ((True, DRYRUN_DIRECT_POD), (False, DRYRUN_DIRECT)):
+        for arch in names:
+            tag = f"direct_{'multi' if multi_pod else 'single'}_{arch}"
+            jobs.append((tag, [py, "-c", f"import chip_smoke; chip_smoke._dryrun_direct("
+                                         f"{arch!r}, {multi_pod}, {str(out_dir / tag)!r})"],
+                         out_dir / f"{tag}.log"))
+    workers = len(os.sched_getaffinity(0))
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(workers) as pool:   # started in the list's order
+        done = {name: (rc, s) for name, rc, s in pool.map(_run_child, jobs)}
+    wall = time.monotonic() - t0
+    for name, _, log in jobs:
+        rc, s = done[name]
+        say(f"[dryrun] child {name}: exit {rc} in {s:.1f} s")
+        check(rc == 0 and "FAIL" not in log.read_text(), f"dry-run child {name}: exit 0, no FAIL")
+    combos = {(a, s) for a in ARCHITECTURES for s in INPUT_SHAPES}
+    skip = {("whisper-small", "long_500k")}
+    rows = {}
+    for mesh, desc, chips in (("single", "16x16", 256), ("multi", "2x16x16", 512)):
+        got = []
+        for arch in archs:
+            got += [json.loads(line) for line in
+                    (out_dir / f"{mesh}_{arch}.jsonl").read_text().splitlines()]
+            skips = re.findall(r"^SKIP (\S+) x (\S+):", (out_dir / f"{mesh}_{arch}.log").read_text(),
+                               re.M)
+            check(set(skips) == {c for c in skip if c[0] == arch},
+                  f"{mesh} {arch}: skips {skips}")
+        check({(r["arch"], r["shape"]) for r in got} == combos - skip and len(got) == 39,
+              f"{mesh}-pod sweep: a row for each of the 39 combinations, got {len(got)}")
+        for r in got:
+            what = f"{r['arch']} x {r['shape']} [{desc}]"
+            check(set(r) == DRYRUN_ROW_KEYS, f"{what}: row keys {sorted(set(r) ^ DRYRUN_ROW_KEYS)}")
+            check(r["mesh"] == desc and r["chips"] == chips, f"{what}: mesh and chips")
+            check(all(isinstance(r[k], (int, float)) and math.isfinite(r[k]) and r[k] > 0
+                      for k in DRYRUN_TERMS), f"{what}: every term finite and positive")
+            say(f"[dryrun] {r['arch']:22s} {r['shape']:12s} {desc:8s} flops/chip "
+                f"{r['hlo_flops']:.4e} bytes/chip {r['hlo_bytes']:.4e} coll/chip "
+                f"{r['collective_bytes']:.4e}; compute {r['compute_s'] * 1e3:.3f} ms, memory "
+                f"{r['memory_s'] * 1e3:.3f} ms, collective {r['collective_s'] * 1e3:.3f} ms -> "
+                f"{r['dominant']}; useful {r['useful_ratio']:.4f}; {r['peak_memory_counts']} "
+                f"{r['peak_memory_per_chip'] / 1e9:.3f} GB/chip fits={r['fits']}; params "
+                f"{r['n_params']:,} (active {r['n_params_active']:,}); counted in "
+                f"{r['compile_s']} s")
+            rows[(mesh, r["arch"], r["shape"])] = r
+    for arch, n in card_params.items():
+        mine = {r["n_params"] for (m, a, _), r in rows.items() if a == arch}
+        say(f"[dryrun] {arch}: n_params {sorted(mine)} against {n:,} built on the card")
+        check(mine == {n}, f"{arch}: the dry-run's n_params equals the card's model")
+    direct_err = {}
+    for multi_pod, names in ((True, DRYRUN_DIRECT_POD), (False, DRYRUN_DIRECT)):
+        mesh = "multi" if multi_pod else "single"
+        for arch in names:
+            direct = json.loads((out_dir / f"direct_{mesh}_{arch}").read_text())
+            for shape, d in direct.items():
+                r = rows[(mesh, arch, shape)]
+                errs = [abs(r["hlo_flops"] - d["flops"]) / d["flops"],
+                        abs(r["hlo_bytes"] - d["bytes"]) / d["bytes"]]
+                direct_err[f"{mesh} {arch} {shape}"] = errs
+                say(f"[dryrun] {arch} x {shape} [{r['mesh']}]: extrapolated against direct "
+                    f"full-depth count (counted in {d['s']:.1f} s): flops {r['hlo_flops']:.6e} / "
+                    f"{d['flops']:.6e}, bytes {r['hlo_bytes']:.6e} / {d['bytes']:.6e}; "
+                    f"relative errors {errs[0]:.2e}, {errs[1]:.2e}")
+                check(max(errs) <= 1e-9, f"{arch} x {shape} [{mesh}]: extrapolation equals "
+                                         f"the direct count within 1e-9")
+    twins = json.loads((out_dir / "twins.json").read_text())
+    for t in twins:
+        key = (t["kind"], t["arch"])
+        if key not in card_s:
+            continue
+        s = card_s[key]
+        t.update(card_s=s, counted_tflops=t["flops"] / s / 1e12,
+                 model_flop_share=t["model_flops"] / (s * BF16_FLOPS_PER_S))
+        say(f"[dryrun] {t['kind']} {t['arch']}" + (f" {t['cut']}" if t["cut"] else "")
+            + f" ({t['batch']}, {t['seq']}) bf16: {t['flops']:.4e} counted FLOPs, "
+            f"{t['bytes']:.4e} counted bytes, model FLOPs {t['model_flops']:.4e} "
+            f"({t['n_active']:,} active); the card's median {s * 1e3:.1f} ms -> counted "
+            f"{t['counted_tflops']:.1f} TFLOP/s, model-FLOP share "
+            f"{t['model_flop_share']:.4f} of 989 TFLOP/s")
+    say(f"[dryrun] {len(jobs)} children on {workers} workers in {wall:.1f} s")
+    return {"rows": list(rows.values()), "children": done, "workers": workers, "wall_s": wall,
+            "direct_rel_err": direct_err, "twins": twins}
+
 PHASE_S: dict = {}   # seconds each phase of main() took, in order
 
 
@@ -5365,6 +5590,16 @@ def main() -> int:
     live_proc = timed(phase_live_process_round)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_soak_") as d:
         soak = timed(phase_chaos_soak, Path(d))
+    card_params = {arch: run[f"{arch} bf16"]["params"] for run, arch in (
+        (zoo, "olmo-1b"), (zoo, "mamba2-130m"), (moe_zoo, "granite-moe-1b-a400m"),
+        (moe_zoo, "deepseek-moe-16b"), (encdec_zoo, "whisper-small"))}
+    card_s = {("prefill", arch): run[f"{arch} bf16"]["prefill_s"] for run, arch in (
+        (zoo, "olmo-1b"), (zoo, "mamba2-130m"), (moe_zoo, "granite-moe-1b-a400m"),
+        (moe_zoo, "deepseek-moe-16b"), (encdec_zoo, "whisper-small"), (hybrid_zoo, JAMBA))}
+    card_s.update({("train", arch): run["step_s"] for run, arch in (
+        (train_step, "olmo-1b"), (ssm_train, "mamba2-130m"), (moe_train, "granite-moe-1b-a400m"),
+        (encdec_train, "whisper-small"), (hybrid_train, JAMBA))})
+    dryrun = timed(phase_dryrun, card_params, card_s)
 
     dq = dq_timing["int8"]
     kernels = [{
@@ -5484,7 +5719,7 @@ def main() -> int:
         "hierarchy_round": hier_round, "hierarchy_lora": hier_lora, "stacked_reduce": stacked,
         "pod_mesh": pod_mesh, "pod_round": pod,
         "live": live, "live_proc": live_proc,
-        "soak": soak, "phase_s": PHASE_S,
+        "soak": soak, "dryrun": dryrun, "phase_s": PHASE_S,
         "seconds": time.monotonic() - t_start,
     }, indent=1))
     say(f"[done] {time.monotonic() - t_start:.1f} s")

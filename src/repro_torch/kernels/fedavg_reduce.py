@@ -96,12 +96,13 @@ def fedavg_reduce(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     Weights are normalized to sum 1 in fp32 (as the reference does) and
     the sum is taken in fp32.  A CUDA buffer goes through the kernel,
     launched on the current stream without a synchronize; a CPU buffer
-    through :func:`fedavg_reduce_plain`."""
+    through :func:`fedavg_reduce_plain`, and so does a ``meta`` buffer,
+    for which it computes only the shape (the dry-run's)."""
     _check(stacked, weights)
-    if stacked.device.type == "cpu":
+    if stacked.device.type in ("cpu", "meta"):
         return fedavg_reduce_plain(stacked, weights)
     if stacked.device.type != "cuda":
-        raise ValueError(f"fedavg_reduce runs on cuda or cpu, not {stacked.device}")
+        raise ValueError(f"fedavg_reduce runs on cuda, cpu or meta, not {stacked.device}")
     w = weights.to(torch.float32)
     w = (w / w.sum()).contiguous()
     if stacked.shape[1] == 0:
@@ -109,6 +110,6 @@ def fedavg_reduce(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return _launch(stacked, w)
 
 
-# Kernel launches since the count was last set to 0 (CPU calls and
-# empty buffers launch nothing and do not count).
+# Kernel launches since the count was last set to 0 (CPU and meta calls
+# and empty buffers launch nothing and do not count).
 fedavg_reduce.launches = 0  # type: ignore[attr-defined]

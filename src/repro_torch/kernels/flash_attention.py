@@ -186,12 +186,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of q ``(B, Sq, H, D)`` over k, v ``(B, Sk, KV, D)``; returns
     ``(B, Sq, H, D)`` in q's dtype.  A CUDA call goes through the kernel,
     launched on the current stream without a synchronize; a CPU call
-    through :func:`flash_attention_plain`."""
+    through :func:`flash_attention_plain`, and so does a ``meta`` call,
+    which computes only the output's shape (the dry-run's)."""
     _check(q, k, v, causal, window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not {q.device}")
     if q.numel() == 0 or k.shape[1] == 0:
         return torch.zeros_like(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -199,8 +200,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(*(_as_aligned(t) for t in (q, k, v)), causal, window)
 
 
-# Kernel launches since the count was last set to 0 (CPU calls and empty
-# inputs launch nothing and do not count).
+# Kernel launches since the count was last set to 0 (CPU and meta calls
+# and empty inputs launch nothing and do not count).
 flash_attention.launches = 0  # type: ignore[attr-defined]
 
 

@@ -5,7 +5,12 @@ The reference picks Pallas-compiled or Pallas-interpreted by backend,
 with an environment override.  The port has no such switch: each call
 is routed by the device of the tensor it is given.  A CUDA tensor
 launches the hand-written kernel (or raises); a CPU tensor runs the
-plain PyTorch version.  There is no override and no fallback.
+plain PyTorch version.  A ``meta`` tensor (``launch/dryrun.py`` counts
+steps on them) also takes the plain version of ``fedavg_reduce``,
+``flash_attention`` and ``ssd_scan``, which then computes only shapes
+and launches nothing; ``dequant_fold`` is on no dry-run step and takes
+no ``meta`` input.  Any other device raises.  There is no override, and
+no fallback: a CUDA tensor never takes the plain version.
 """
 from __future__ import annotations
 

@@ -223,18 +223,19 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_mat: to
     N) fp32)``.  CUDA inputs go through the intra-chunk kernel, launched
     on the current stream without a synchronize (its backward kernel where
     an input needs a gradient), then :func:`inter_chunk`; CPU inputs
-    through :func:`ssd_chunk_scan_plain`."""
+    through :func:`ssd_chunk_scan_plain`, and so do ``meta`` inputs, for
+    which it computes only shapes (the dry-run's)."""
     _check(x, dt, A, B_mat, C_mat, chunk)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_chunk_scan_plain(x, dt, A, B_mat, C_mat, chunk, initial_state)
     if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk_scan runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"ssd_chunk_scan runs on cuda, cpu or meta, not {x.device}")
     y_diag, states, a_cs = ssd_intra_chunk(x, dt, A, B_mat, C_mat, chunk)
     return inter_chunk(y_diag, states, a_cs, C_mat, initial_state, x.dtype)
 
 
-# Kernel launches since the count was last set to 0 (CPU calls launch
-# nothing and do not count).
+# Kernel launches since the count was last set to 0 (CPU and meta calls
+# launch nothing and do not count).
 ssd_chunk_scan.launches = 0  # type: ignore[attr-defined]
 
 

@@ -1,3 +1,2 @@
-"""Step functions, the serving driver, the trainer, meshes and input
-specs for the model zoo, the port of ``repro.launch`` (all but the
-dry-run)."""
+"""Step functions, the serving driver, the trainer, meshes, input specs
+and the dry-run for the model zoo, the port of ``repro.launch``."""

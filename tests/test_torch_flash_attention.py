@@ -115,10 +115,23 @@ def test_cpu_call_does_not_count_a_launch():
     assert flash_attention.launches == before
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device that is none of cuda, cpu and
+    meta (``meta`` takes the plain version too: the dry-run's route)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t):
+    return torch.Tensor._make_subclass(_Elsewhere, t)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "heads", "window", "device", "shape"])
 def test_rejects_bad_input(bad):
-    """Nothing but a CPU tensor reaches the plain version: another device
-    raises instead of falling back."""
+    """Nothing but a CPU or meta tensor reaches the plain version: another
+    device raises instead of falling back."""
     q, k, v = _torch(_qkv(1, 16, 4, 2, 64, seed=5), "float32")
     kw = {}
     if bad == "dtype":
@@ -128,7 +141,7 @@ def test_rejects_bad_input(bad):
     elif bad == "window":
         kw = {"causal": False, "window": 8}
     elif bad == "device":
-        q, k, v = (t.to("meta") for t in (q, k, v))
+        q, k, v = (_elsewhere(t) for t in (q, k, v))
     else:
         k = k[:, :8]
     with pytest.raises((TypeError, ValueError)):

@@ -87,10 +87,23 @@ def test_strided_rows_match_contiguous():
                        fedavg_reduce(torch.from_numpy(x), torch.from_numpy(w)))
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device that is none of cuda, cpu and
+    meta (``meta`` takes the plain version too: the dry-run's route)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t):
+    return torch.Tensor._make_subclass(_Elsewhere, t)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "weights", "rank", "device"])
 def test_fedavg_reduce_rejects_bad_input(bad):
-    """Nothing but a CPU tensor reaches the plain version: another device
-    raises instead of falling back."""
+    """Nothing but a CPU or meta tensor reaches the plain version: another
+    device raises instead of falling back."""
     x = torch.ones((2, 10))
     w = torch.ones(2)
     if bad == "dtype":
@@ -100,7 +113,7 @@ def test_fedavg_reduce_rejects_bad_input(bad):
     elif bad == "rank":
         x = torch.ones(10)
     else:
-        x, w = x.to("meta"), w.to("meta")
+        x, w = _elsewhere(x), _elsewhere(w)
     with pytest.raises((TypeError, ValueError)):
         fedavg_reduce(x, w)
 

@@ -161,6 +161,19 @@ def test_cpu_call_does_not_count_a_launch():
     assert ssd_chunk_scan.launches == before
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device that is none of cuda, cpu and
+    meta (``meta`` takes the plain version too: the dry-run's route)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t):
+    return torch.Tensor._make_subclass(_Elsewhere, t)
+
+
 @pytest.mark.parametrize("bad", ["chunk", "dt", "device"])
 def test_rejects_bad_input(bad):
     x, dt, A, Bm, Cm = _torch(_inputs(1, 32, 2, 8, 8, seed=6))
@@ -170,7 +183,7 @@ def test_rejects_bad_input(bad):
     elif bad == "dt":
         dt = dt[:, :16]
     else:
-        x, dt, A, Bm, Cm = (t.to("meta") for t in (x, dt, A, Bm, Cm))
+        x, dt, A, Bm, Cm = (_elsewhere(t) for t in (x, dt, A, Bm, Cm))
     with pytest.raises((TypeError, ValueError)):
         ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
 
