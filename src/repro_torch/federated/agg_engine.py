@@ -490,15 +490,11 @@ class ResolvedSchema:
 
 @dataclasses.dataclass
 class AggStats:
-    """Engine counters.  ``n_traces`` counts XLA retraces in the
-    reference; the port runs eagerly and traces or compiles nothing per
-    call, so it stays 0 (kept so a caller that checks for retraces reads
-    the same field).  ``wire_bytes`` is what crossed the transport,
+    """Engine counters.  ``wire_bytes`` is what crossed the transport,
     ``folded_bytes`` the dense fp32 equivalent the reduce is worth; for
     the dense updates of this path the two are equal."""
 
     n_calls: int = 0
-    n_traces: int = 0
     last_wire_bytes: int = 0
     total_wire_bytes: int = 0
     last_folded_bytes: int = 0

@@ -69,6 +69,7 @@ from ..core.events import (
     UpdateFolded,
 )
 from ..core.revocation import RevocationModel, RevocationSampler
+from ..utils import spans
 from .agg_engine import (
     AgeDiscount,
     AggregationEngine,
@@ -718,12 +719,11 @@ class AsyncRoundEngine:
         # on the server (arrival 0 on this round's clock), folded with the
         # staleness discount.
         for entry in self.carry.drain():
-            t0 = time.monotonic()
-            mult = self._carry_multiplier(entry, round_idx, base_params)
-            w_eff = float(entry.weight) * mult
-            agg.add(entry.params, w_eff, block=True, client_id=entry.client_id)
-            measured = time.monotonic() - t0
-            cost = self.fold_cost_s if self.fold_cost_s is not None else measured
+            with spans.timer("fl.fold.add", silo=entry.client_id) as adding:
+                mult = self._carry_multiplier(entry, round_idx, base_params)
+                w_eff = float(entry.weight) * mult
+                agg.add(entry.params, w_eff, block=True, client_id=entry.client_id)
+            cost = self.fold_cost_s if self.fold_cost_s is not None else adding.seconds
             start = server_free
             server_free = start + cost
             busy += cost
@@ -802,10 +802,9 @@ class AsyncRoundEngine:
                     )
                 continue
 
-            t0 = time.monotonic()
-            agg.add(res.params, res.n_samples, block=True, client_id=cid)
-            measured = time.monotonic() - t0
-            cost = self.fold_cost_s if self.fold_cost_s is not None else measured
+            with spans.timer("fl.fold.add", silo=cid) as adding:
+                agg.add(res.params, res.n_samples, block=True, client_id=cid)
+            cost = self.fold_cost_s if self.fold_cost_s is not None else adding.seconds
             start = max(arrival, server_free)
             end = start + cost
             server_free = end
@@ -828,19 +827,19 @@ class AsyncRoundEngine:
                 "every silo's update was revoked and excluded; nothing to fold"
             )
 
-        t0 = time.monotonic()
         partial = None
-        if emit_partial:
-            params = None
-            partial = agg.export_partial()
-            # A StructuredPartialSum holds one accumulator per group.
-            for acc in ([partial.acc] if isinstance(partial, PartialSum)
-                        else [g.acc for _, g in partial.groups]):
-                synchronize(acc.device)
-        else:
-            params = agg.result()
-            synchronize(tree_device(params))
-        finalize = (time.monotonic() - t0) if self.fold_cost_s is None else 0.0
+        with spans.timer("fl.fold.finalize") as finalizing:
+            if emit_partial:
+                params = None
+                partial = agg.export_partial()
+                # A StructuredPartialSum holds one accumulator per group.
+                for acc in ([partial.acc] if isinstance(partial, PartialSum)
+                            else [g.acc for _, g in partial.groups]):
+                    synchronize(acc.device)
+            else:
+                params = agg.result()
+                synchronize(tree_device(params))
+        finalize = finalizing.seconds if self.fold_cost_s is None else 0.0
         busy += finalize
         span = server_free + finalize
         if t_close is not None and carried_over:
@@ -1051,33 +1050,18 @@ class AsyncFLServer(FLServer):
 
     def _fold_phase(self, round_idx: int, results: Sequence[ClientResult]) -> FoldReport:
         base = None
-        if self._schema is not None:
-            # Structured rounds: clients ship only the schema's named
-            # groups.  self.params is still the dispatched global weights
-            # (updated only after the fold), so it is both the encoding
-            # base and the aggregation base.
-            base = self.params
-            results = [
-                dataclasses.replace(
-                    r,
-                    params=self._structured_encoder_for(r.client_id).encode(
-                        base, r.params, base_round=round_idx
-                    ),
-                )
-                for r in results
-            ]
-        elif self._compression is not None:
+        if self._schema is not None or self._compression is not None:
+            # Structured rounds ship only the schema's named groups,
+            # compressed ones a quantized or sparsified delta.
             # self.params is still the round's dispatched global weights
             # here (updated only after the fold), so it is both the delta
             # base for encoding and the aggregation base for folding.
             base = self.params
+            encoder_for = (self._structured_encoder_for if self._schema is not None
+                           else self._compressor_for)
             results = [
-                dataclasses.replace(
-                    r,
-                    params=self._compressor_for(r.client_id).encode(
-                        base, r.params, base_round=round_idx
-                    ),
-                )
+                dataclasses.replace(r, params=encoder_for(r.client_id).encode(
+                    base, r.params, base_round=round_idx))
                 for r in results
             ]
         report = self._round_engine.fold_round(

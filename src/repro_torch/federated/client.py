@@ -22,13 +22,13 @@ error-feedback residual stays with the silo across rounds.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..optim.optimizers import MaskedOptimizer
+from ..utils import spans
 from ..utils.tree import tree_flatten, tree_unflatten
 
 Device = Union[str, torch.device]
@@ -136,27 +136,27 @@ class FLClient:
 
     # -- training phase ------------------------------------------------------
     def train(self, global_params: Any) -> ClientResult:
-        t0 = time.monotonic()
-        params = global_params
-        # Fresh optimizer state per round (clients are stateless across
-        # rounds w.r.t. the optimizer; only weights flow through the server).
-        opt_state = self.optimizer.init(params)
-        # n_samples is the silo's per-epoch example count — the FedAvg
-        # weight (§3).  Count one epoch's pass exactly rather than
-        # dividing the multi-epoch total (ragged last batches).
-        n_first_epoch = 0
-        for epoch in range(self.local_epochs):
-            for raw in self.silo.batches(self.batch_size, split="train"):
-                batch = self.batch_fn(raw)
-                params, opt_state, _ = self._train_step(params, opt_state, batch)
-                if epoch == 0:
-                    n_first_epoch += _batch_count(raw)
-        synchronize(self.device)
+        with spans.timer("fl.train", silo=self.client_id) as timed:
+            params = global_params
+            # Fresh optimizer state per round (clients are stateless across
+            # rounds w.r.t. the optimizer; only weights flow through the server).
+            opt_state = self.optimizer.init(params)
+            # n_samples is the silo's per-epoch example count — the FedAvg
+            # weight (§3).  Count one epoch's pass exactly rather than
+            # dividing the multi-epoch total (ragged last batches).
+            n_first_epoch = 0
+            for epoch in range(self.local_epochs):
+                for raw in self.silo.batches(self.batch_size, split="train"):
+                    batch = self.batch_fn(raw)
+                    params, opt_state, _ = self._train_step(params, opt_state, batch)
+                    if epoch == 0:
+                        n_first_epoch += _batch_count(raw)
+            synchronize(self.device)
         return ClientResult(
             client_id=self.client_id,
             params=params,
             n_samples=n_first_epoch,
-            train_time_s=time.monotonic() - t0,
+            train_time_s=timed.seconds,
         )
 
     def encode_update(self, global_params: Any, local_params: Any) -> Any:
@@ -172,30 +172,30 @@ class FLClient:
     # -- evaluation phase -----------------------------------------------------
     @torch.no_grad()
     def evaluate(self, aggregated_params: Any) -> EvalResult:
-        t0 = time.monotonic()
-        sums: Dict[str, float] = {}
-        n = 0
-        for raw in self.silo.batches(self.batch_size, split="test"):
-            batch = self.batch_fn(raw)
-            if self.eval_fn is not None:
-                out = self.eval_fn(aggregated_params, batch)
-            else:
-                out = {"loss_sum": self.loss_fn(aggregated_params, batch) * _batch_count(raw)}
-            for k, v in out.items():
-                sums[k] = sums.get(k, 0.0) + float(v)
-            n += _batch_count(raw)
-        # Average only the keys that declare themselves example-weighted
-        # sums via a "_sum" suffix, stripping exactly that suffix.
-        metrics = {
-            (k[: -len("_sum")] if k.endswith("_sum") else k):
-                (v / max(n, 1) if k.endswith("_sum") else v)
-            for k, v in sums.items()
-        }
+        with spans.timer("fl.eval", silo=self.client_id) as timed:
+            sums: Dict[str, float] = {}
+            n = 0
+            for raw in self.silo.batches(self.batch_size, split="test"):
+                batch = self.batch_fn(raw)
+                if self.eval_fn is not None:
+                    out = self.eval_fn(aggregated_params, batch)
+                else:
+                    out = {"loss_sum": self.loss_fn(aggregated_params, batch) * _batch_count(raw)}
+                for k, v in out.items():
+                    sums[k] = sums.get(k, 0.0) + float(v)
+                n += _batch_count(raw)
+            # Average only the keys that declare themselves example-weighted
+            # sums via a "_sum" suffix, stripping exactly that suffix.
+            metrics = {
+                (k[: -len("_sum")] if k.endswith("_sum") else k):
+                    (v / max(n, 1) if k.endswith("_sum") else v)
+                for k, v in sums.items()
+            }
         return EvalResult(
             client_id=self.client_id,
             metrics=metrics,
             n_samples=n,
-            eval_time_s=time.monotonic() - t0,
+            eval_time_s=timed.seconds,
         )
 
 

@@ -51,6 +51,7 @@ import torch
 
 from ..checkpoint._msgpack import packb, unpackb
 from ..checkpoint.serializer import DeserializationError
+from ..utils import spans
 
 # One quantization block per dequant_fold scale block
 # (kernels/fedavg_reduce.BLOCK): the (B,) scale vector on the wire feeds
@@ -151,7 +152,8 @@ class CompressedUpdate:
     def wire_bytes(self) -> int:
         """Serialized frame size (what actually crosses the transport).
         This builds the whole frame on the host, as the reference does."""
-        return len(serialize_update(self))
+        with spans.span("fl.fold.frame"):
+            return len(serialize_update(self))
 
     @property
     def dense_bytes(self) -> int:
@@ -461,8 +463,10 @@ class StructuredUpdate:
 
     @property
     def wire_bytes(self) -> int:
-        """Serialized frame size (what actually crosses the transport)."""
-        return len(serialize_structured(self))
+        """Serialized frame size (what actually crosses the transport).
+        This builds the whole frame on the host, as the reference does."""
+        with spans.span("fl.fold.frame"):
+            return len(serialize_structured(self))
 
     @property
     def dense_bytes(self) -> int:

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional, Union
 from ..checkpoint._msgpack import packb
 from ..checkpoint.serializer import pytree_num_bytes, serialize_pytree
 from ..core.application_model import MessageSizes
+from ..utils import spans
 from .compression import (
     CompressionSpec,
     StructuredCompressor,
@@ -89,36 +90,47 @@ def measure_messages(
     or a group mapping) the ``c_msg_train`` leg is a structured frame:
     only the named groups ride the wire, per-group byte maps fill
     ``group_wire_bytes``/``group_dense_bytes``, and the dense equivalent
-    stays the FULL model's fp32 size."""
-    weight_bytes = len(serialize_pytree(params))
-    c_train_bytes = weight_bytes
-    codec = "none"
-    dense: Optional[int] = None
-    group_wire: Optional[Dict[str, int]] = None
-    group_dense: Optional[Dict[str, int]] = None
-    spec = parse_compression(compression)
-    if schema is not None:
-        from .agg_engine import plan_for
+    stays the FULL model's fp32 size.
 
-        comp = StructuredCompressor(schema, spec)
-        update = comp.encode(params, params, base_round=0)
-        c_train_bytes = len(serialize_structured(update))
-        group_wire = update.group_wire_bytes()
-        group_dense = update.group_dense_bytes()
-        dense = plan_for(params).total_elems * 4
-        codec = "structured" if spec is None else f"structured:{spec.codec}"
-    elif spec is not None:
-        from .agg_engine import plan_for
+    Every frame built here is counted, while spans are on, into
+    ``fl.bytes.serialized``: the weight blob, the structured frame and
+    its per-group frames or the compressed frame, and the metrics
+    frame."""
+    with spans.span("fl.messages"):
+        weight_bytes = len(serialize_pytree(params))
+        c_train_bytes = weight_bytes
+        codec = "none"
+        dense: Optional[int] = None
+        group_wire: Optional[Dict[str, int]] = None
+        group_dense: Optional[Dict[str, int]] = None
+        spec = parse_compression(compression)
+        framed = 0
+        if schema is not None:
+            from .agg_engine import plan_for
 
-        total = plan_for(params).total_elems
-        c_train_bytes = compressed_wire_bytes(total, spec)
-        codec = spec.codec
-        dense = total * 4
+            comp = StructuredCompressor(schema, spec)
+            update = comp.encode(params, params, base_round=0)
+            c_train_bytes = len(serialize_structured(update))
+            group_wire = update.group_wire_bytes()
+            group_dense = update.group_dense_bytes()
+            dense = plan_for(params).total_elems * 4
+            codec = "structured" if spec is None else f"structured:{spec.codec}"
+            framed = c_train_bytes + sum(group_wire.values())
+        elif spec is not None:
+            from .agg_engine import plan_for
+
+            total = plan_for(params).total_elems
+            c_train_bytes = compressed_wire_bytes(total, spec)
+            codec = spec.codec
+            dense = total * 4
+            framed = c_train_bytes
+        c_test_bytes = len(serialize_metrics(metrics_example))
+        spans.count("fl.bytes.serialized", weight_bytes + framed + c_test_bytes)
     return RoundMessageLog(
         s_msg_train_bytes=weight_bytes,
         c_msg_train_bytes=c_train_bytes,
         s_msg_aggreg_bytes=weight_bytes,
-        c_msg_test_bytes=len(serialize_metrics(metrics_example)),
+        c_msg_test_bytes=c_test_bytes,
         codec=codec,
         c_msg_train_dense_bytes=dense,
         group_wire_bytes=group_wire,

@@ -28,6 +28,7 @@ import torch
 
 from ..checkpoint import ClientCheckpointManager, ServerCheckpointManager, resolve_freshest
 from ..core.events import CheckpointSaved, EventBus, RecoveryCompleted, RoundDispatched
+from ..utils import spans
 from ..utils.tree import tree_map
 from .agg_engine import AggregationEngine
 from .aggregation import aggregate_metrics
@@ -139,53 +140,57 @@ class FLServer:
 
     # ------------------------------------------------------------------
     def _run_round(self, round_idx: int, restarted_from: Optional[str]) -> RoundRecord:
-        # Training phase: s_msg_train -> local train -> c_msg_train.
-        t0 = time.monotonic()
-        results: List[ClientResult] = [c.train(self.params) for c in self.clients]
-        t_agg = time.monotonic()
-        fold = self._fold_phase(round_idx, results)
-        self.params = fold.params
-        synchronize(self.device)
-        if self.post_round_hook is not None:
-            merged = self.post_round_hook(round_idx, self.params)
-            if merged is not None:
-                self.params = merged
+        with spans.span("fl.round", round=round_idx):
+            reserved = spans.reserved(self.device)
+            record = self._round_phases(round_idx, restarted_from)
+            if reserved is not None:
+                spans.count("fl.alloc.reserved", spans.reserved(self.device) - reserved)
+        return record
+
+    def _round_phases(self, round_idx: int, restarted_from: Optional[str]) -> RoundRecord:
+        # Training phase: s_msg_train -> local train -> c_msg_train, then
+        # the fold (the training time holds it).
+        with spans.timer("fl.training") as training:
+            results: List[ClientResult] = [c.train(self.params) for c in self.clients]
+            with spans.timer("fl.fold") as folding:
+                fold = self._fold_phase(round_idx, results)
+                self.params = fold.params
                 synchronize(self.device)
-        agg_time = time.monotonic() - t_agg
-        train_time = time.monotonic() - t0
+                if self.post_round_hook is not None:
+                    merged = self.post_round_hook(round_idx, self.params)
+                    if merged is not None:
+                        self.params = merged
+                        synchronize(self.device)
 
         # Evaluation phase: s_msg_aggreg -> local eval -> c_msg_test.
-        t1 = time.monotonic()
-        evals: List[EvalResult] = [c.evaluate(self.params) for c in self.clients]
-        metrics = aggregate_metrics(
-            [e.metrics for e in evals], [max(e.n_samples, 1) for e in evals]
-        )
-        eval_time = time.monotonic() - t1
+        with spans.timer("fl.evaluation") as evaluation:
+            evals: List[EvalResult] = [c.evaluate(self.params) for c in self.clients]
+            metrics = aggregate_metrics(
+                [e.metrics for e in evals], [max(e.n_samples, 1) for e in evals]
+            )
 
         # Checkpointing (§4.3).  Client and server saves are timed
         # separately so each CheckpointSaved event carries only its own
         # location's overhead.
-        t2 = time.monotonic()
         saved_client = False
-        for c in self.clients:
-            mgr = self.client_ckpts.get(c.client_id)
-            if mgr is not None:
-                mgr.save(round_idx, self.params)
-                saved_client = True
-        client_ckpt_time = time.monotonic() - t2
-        t3 = time.monotonic()
+        with spans.timer("fl.checkpoint", where="client_local") as client_ckpt:
+            for c in self.clients:
+                mgr = self.client_ckpts.get(c.client_id)
+                if mgr is not None:
+                    mgr.save(round_idx, self.params)
+                    saved_client = True
         saved_server = False
-        if self.server_ckpt is not None and self.server_ckpt.should_checkpoint(round_idx):
-            self.server_ckpt.save(round_idx, self.params)
-            saved_server = True
-        server_ckpt_time = time.monotonic() - t3
+        with spans.timer("fl.checkpoint", where="server_remote") as server_ckpt:
+            if self.server_ckpt is not None and self.server_ckpt.should_checkpoint(round_idx):
+                self.server_ckpt.save(round_idx, self.params)
+                saved_server = True
         if saved_client:
             self.bus.publish(
-                CheckpointSaved(self._wall(), round_idx, "client_local", client_ckpt_time)
+                CheckpointSaved(self._wall(), round_idx, "client_local", client_ckpt.seconds)
             )
         if saved_server:
             self.bus.publish(
-                CheckpointSaved(self._wall(), round_idx, "server_remote", server_ckpt_time)
+                CheckpointSaved(self._wall(), round_idx, "server_remote", server_ckpt.seconds)
             )
 
         log = None
@@ -198,13 +203,13 @@ class FLServer:
                                    schema=getattr(self, "_schema", None))
         return RoundRecord(
             round_idx=round_idx,
-            train_time_s=train_time,
-            eval_time_s=eval_time,
-            checkpoint_time_s=client_ckpt_time + server_ckpt_time,
+            train_time_s=training.seconds,
+            eval_time_s=evaluation.seconds,
+            checkpoint_time_s=client_ckpt.seconds + server_ckpt.seconds,
             metrics=metrics,
             message_log=log,
             restarted_from=restarted_from,
-            agg_time_s=agg_time,
+            agg_time_s=folding.seconds,
             fold_times_s=fold.fold_times,
             round_span_s=fold.round_span_s,
             idle_s=fold.idle_s,
