@@ -5,7 +5,9 @@ its ``c_msg_test`` metrics frame with ``msgpack.packb(...,
 use_bin_type=True)``.  The port writes the same bytes without the
 ``msgpack`` package: maps (insertion order), arrays, str, bin, int,
 float (always float64, as ``packb`` writes a Python float), bool and
-nil, each in the smallest encoding ``packb`` would choose.  ``unpackb``
+nil, each in the smallest encoding ``packb`` would choose;
+:func:`pack_segments` packs the same bytes with the contents of chosen
+``bin`` values left out, for a caller that writes them itself.  ``unpackb``
 reads that subset back, with str decoded as UTF-8 and bin returned as a
 ``memoryview`` into the input (no copy of large payloads), and raises
 :class:`MsgpackError` on anything else: an unknown type byte, a
@@ -30,6 +32,16 @@ _F64 = struct.Struct(">d")
 
 class MsgpackError(ValueError):
     """Bytes that are not a complete msgpack object of the subset."""
+
+
+class Hole:
+    """A ``bin`` of ``nbytes`` bytes whose contents :func:`pack_segments`
+    leaves out: its header is packed, its bytes are the caller's."""
+
+    __slots__ = ("nbytes",)
+
+    def __init__(self, nbytes: int) -> None:
+        self.nbytes = nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +112,9 @@ def _pack(obj: Any, out: List[bytes]) -> None:
         n = memoryview(obj).nbytes
         _pack_len(n, 0, 0, (0xC4, 0xC5, 0xC6), out)
         out.append(obj if isinstance(obj, bytes) else bytes(obj))
+    elif isinstance(obj, Hole):
+        _pack_len(obj.nbytes, 0, 0, (0xC4, 0xC5, 0xC6), out)
+        out.append(obj)
     elif isinstance(obj, (list, tuple)):
         _pack_len(len(obj), 0x90, 15, (0, 0xDC, 0xDD), out)
         for v in obj:
@@ -118,6 +133,24 @@ def packb(obj: Any) -> bytes:
     out: List[bytes] = []
     _pack(obj, out)
     return b"".join(out)
+
+
+def pack_segments(obj: Any) -> List[bytes]:
+    """``packb(obj)`` cut at each :class:`Hole` in ``obj``: the packed
+    bytes before the first hole, between each hole and the next, and after
+    the last, so one more segment than holes.  Laid out with each hole's
+    ``nbytes`` bytes between its two segments they are the bytes
+    ``packb`` gives for the same object with those bytes in place."""
+    out: List[Any] = []
+    _pack(obj, out)
+    segments: List[bytes] = []
+    start = 0
+    for i, part in enumerate(out):
+        if isinstance(part, Hole):
+            segments.append(b"".join(out[start:i]))
+            start = i + 1
+    segments.append(b"".join(out[start:]))
+    return segments
 
 
 # ---------------------------------------------------------------------------

@@ -82,9 +82,59 @@ def _leaves_equal(torch_tree, jax_tree):
 # Blobs and frames: identical bytes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "int32", "float16", "bfloat16"])
-def test_blob_bytes_identical(dtype):
-    jtree, port = _both(dtype)
+def _bits_tensor(a):
+    """A numpy array of an extension float (fp8) as the same torch tensor."""
+    a = np.asarray(a)
+    return torch.from_numpy(a.view(np.int8).copy()).view(getattr(torch, a.dtype.name))
+
+
+def _layout_case(case):
+    """(reference tree, port tree) whose blob exercises one corner of the
+    layout: int64 or bool leaves, a non-contiguous leaf, 0-element and 0-d
+    leaves, or headers
+    across msgpack's length boundaries (fixstr / str8 / str16 paths, bin8
+    / bin16 / bin32 data, uint16 / uint32 shape entries, an array16 of
+    more than 15 entries)."""
+    rng = np.random.default_rng(7)
+    if case == "transposed":
+        a = rng.standard_normal((5, 3)).astype(np.float32)
+        base = torch.from_numpy(a)
+        return ({"w": jnp.asarray(a.T), "v": jnp.asarray(a[::2, 1:])},
+                {"w": base.t(), "v": base[::2, 1:]})
+    if case == "empty":
+        shapes = {"a": (0, 3), "b": (4, 0), "c": (0,)}
+        return ({k: jnp.zeros(s, jnp.float32) for k, s in shapes.items()},
+                {k: torch.zeros(s) for k, s in shapes.items()})
+    if case == "scalar":
+        return ({"s": jnp.asarray(2.5, jnp.float32), "i": [jnp.asarray(-7, jnp.int32)]},
+                {"s": torch.tensor(2.5), "i": [torch.tensor(-7, dtype=torch.int32)]})
+    if case in ("int64", "bool"):
+        # Kept as numpy leaves for the reference: jnp would narrow int64.
+        a = rng.integers(-2**40, 2**40, (3, 5), dtype=np.int64)
+        arrays = {"x": a, "y": [a[0], np.asarray(a[1, 1])]}
+        if case == "bool":
+            arrays = _map(lambda v: np.asarray(v > 0), arrays)
+        return arrays, _map(torch.from_numpy, arrays)
+    assert case == "long-headers"
+    tree = {"a" * 31: 255, "b" * 32: 256, "c" * 255: 65535, "d" * 256: 65536}
+    tree.update({f"e{i:02d}": 1 + i for i in range(14)})
+    arrays = {k: rng.integers(0, 256, n, dtype=np.uint8) for k, n in tree.items()}
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+@pytest.mark.parametrize("case", ["float32", "int32", "float16", "bfloat16",
+                                  "float8_e4m3fn", "float8_e5m2", "int64", "bool",
+                                  "transposed", "empty", "scalar", "long-headers"])
+def test_blob_bytes_identical(case):
+    if case.startswith("float8"):
+        jtree = _map(lambda a: jnp.asarray(a, getattr(jnp, case)),
+                     _numpy_tree("float32"))
+        port = _map(_bits_tensor, jtree)
+    elif case in ("float32", "int32", "float16", "bfloat16"):
+        jtree, port = _both(case)
+    else:
+        jtree, port = _layout_case(case)
     assert serialize_pytree(port) == jax_serialize(jtree)
 
 

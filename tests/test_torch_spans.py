@@ -190,6 +190,8 @@ def test_byte_counters_count_the_frames_built(kind):
         serialized += rec.message_log.c_msg_train_bytes + sum(
             rec.message_log.group_wire_bytes.values())
     assert taken.counters["fl.bytes.serialized"] == {1: serialized}
+    # A CPU tree's blob takes none of its bytes through the pinned buffer.
+    assert sum(taken.counters.get("fl.bytes.staged", {}).values()) == 0
     if kind != "barrier":
         # The frames the fold builds on the host (one ``fl.fold.frame`` span
         # each) are counted by the engine's own stats, not by a counter.
