@@ -7,14 +7,17 @@ the workload to a configuration and a traffic mix
 (``fedbench/configs/<config>.json``, ``fedbench/traffic/<traffic>.json``),
 the configuration names its family (``fedbench/families/<family>.py``,
 ``fedbench/reference/<family>.py``, ``fedbench/flops/<family>.py``), every
-metric is ``fedbench/metrics/<name>.py`` and every kernel's work
+metric is ``fedbench/metrics/<name>.py`` (a per-layer one read in the
+cells that report the end-to-end metric it moves) and every kernel's work
 ``fedbench/work/<kernel>.py``; the check's limits are
 ``fedbench/limits/<workload>.json``.
 
 The window drives the system's own entry points: ``FLServer.run`` (barrier
 traffic) or ``AsyncFLServer.run`` (compressed or structured traffic) over
 ``FLClient``s, one round a call, with messages measured as the traffic
-says and no checkpoints.
+says and no checkpoints.  The traced rounds run under ``torch.profiler``
+with the program's spans on (``repro_torch.utils.spans``), joined with
+the trace's device events by ``fedbench/phases.py``.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from .check import fold_gap, is_correct, readings, verdict
-from .reference.common import QBLOCK, Precision, leaves
+from .reference.common import QBLOCK, Precision, dtype_code, leaves
 from .reference.fedavg import STEPS_FOLLOWED, evaluate, fedavg_round, fold_rounds
 
 HERE = Path(__file__).resolve().parent
@@ -151,7 +154,14 @@ class Probe:
 class Blocks:
     """Gathers codec blocks drawn from the seed out of a tree's trained
     leaves (flattened in sorted-key order, as the wire format flattens
-    them): a (B, QBLOCK) float32 tensor on the host, the padding zero."""
+    them): a (B, QBLOCK) float32 tensor on the host, the padding zero.
+
+    ``codes`` holds, for each gathered element, the code
+    (``reference.common.DTYPES``) of the stored dtype of the leaf it came
+    from, (B, QBLOCK) int8, the padding's float32's.  Where the leaves
+    hold more than one dtype, the first and the last block of every leaf
+    whose dtype is not the one most elements have are always drawn, so
+    that a fold that rounds such a leaf to the common dtype is seen."""
 
     def __init__(self, params: Any, traffic: Dict[str, Any], seed: int) -> None:
         lora = traffic.get("adapters")
@@ -159,19 +169,27 @@ class Blocks:
         self.trained = [i for i, (path, _) in enumerate(pairs)
                         if lora is None or ".lora_" in path[-1]]
         self.sizes = [pairs[i][1].numel() for i in self.trained]
-        dtypes = {pairs[i][1].dtype for i in self.trained}
-        if len(dtypes) != 1:
-            raise ValueError(f"trained leaves of more than one dtype: {dtypes}")
-        self.dtype = dtypes.pop()
-        n = sum(self.sizes)
+        kinds = [dtype_code(pairs[i][1].dtype) for i in self.trained]
+        ends = torch.tensor(self.sizes, dtype=torch.int64).cumsum(0)
+        n = int(ends[-1])
         nb = -(-n // QBLOCK)
         g = torch.Generator().manual_seed(seed % 2 ** 63)
         drawn = torch.randperm(nb, generator=g)[:FOLD_BLOCKS]
-        blocks = torch.cat([drawn, torch.tensor([0, nb - 1])]).unique()
+        elems: Dict[int, int] = {}
+        for k, m in zip(kinds, self.sizes):
+            elems[k] = elems.get(k, 0) + m
+        common = max(elems, key=elems.get)
+        edges = [b for k, m, e in zip(kinds, self.sizes, ends.tolist()) if k != common and m
+                 for b in ((e - m) // QBLOCK, (e - 1) // QBLOCK)]
+        blocks = torch.cat([drawn, torch.tensor([0, nb - 1] + edges)]).unique()
         pos = blocks[:, None] * QBLOCK + torch.arange(QBLOCK)[None, :]
         self.valid = (pos < n).reshape(-1)
         self.pos = pos.reshape(-1)[self.valid]
         self.shape = tuple(pos.shape)
+        codes = torch.zeros(self.valid.numel(), dtype=torch.int8)
+        codes[self.valid] = torch.tensor(kinds, dtype=torch.int8)[
+            torch.searchsorted(ends, self.pos, right=True)]
+        self.codes = codes.view(self.shape)
 
     @torch.no_grad()
     def __call__(self, tree: Any) -> torch.Tensor:
@@ -193,14 +211,14 @@ class FoldProbe:
     """Installed on the server for set-up's rounds: records, for each
     round's fold, the sampled blocks of the round's global weights, of
     what each silo shipped into it (its weights before any encoding) and
-    of the fold's result."""
+    of the fold's result, with each sampled element's stored dtype."""
 
     def __init__(self, server: Any, blocks: Blocks) -> None:
         self.server, self.rounds = server, []
         inner = server._fold_phase
 
         def recorded(round_idx: int, results: Any) -> Any:
-            rnd = {"base": blocks(server.params), "dtype": blocks.dtype,
+            rnd = {"base": blocks(server.params), "dtype": blocks.codes,
                    "silos": [(str(r.client_id), r.n_samples, blocks(r.params)) for r in results]}
             report = inner(round_idx, results)
             rnd["new"] = blocks(report.params)
@@ -379,20 +397,38 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: Any = "cu
     if trace:
         from torch.profiler import ProfilerActivity, profile
 
+        from . import phases
         from .trace import summarize
 
+        try:
+            from repro_torch.utils import spans
+        except ImportError:   # a program without spans: the metrics that read them stay silent
+            spans = None
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         t_rounds = []
+        if spans is not None:
+            spans.enable()
         with profile(activities=acts) as prof:
+            w0 = time.perf_counter_ns()
             tt = time.monotonic()
             for _ in range(traffic["trace_rounds"]):
                 t_rounds.append(one_round(server, r, device))
                 r += 1
             traced_s = time.monotonic() - tt
-        traced = dict(summarize(prof), window_s=traced_s, rounds=t_rounds)
+            w1 = time.perf_counter_ns()
+        traced = dict(summarize(prof), window_s=traced_s, rounds=t_rounds, phases=None)
+        if spans is not None:
+            taken = spans.take()
+            spans.disable()
+            traced["phases"] = phases.join(phases.device_busy(phases.device_events(prof)), taken,
+                                           (w0 + taken.offset_ns, w1 + taken.offset_ns))
         del prof
         log(f"[fedbench] traced {len(t_rounds)} rounds in {traced_s:.3f} s, device busy "
             f"{traced['busy_s']:.3f} s")
+        if traced["phases"]:
+            ph = traced["phases"]
+            log("[fedbench] traced idle {:.6f} s: ".format(ph["idle_s"]) + ", ".join(
+                f"{k} {v:.6f}" for k, v in ph["idle"].items()))
 
     del server, first["server"]
     free(device)
@@ -413,14 +449,21 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: Any = "cu
     n_params, n_update = first["n_params"], first["n_update"]
     rec = {"workload": workload, "device": device.type, "config": cfg, "traffic": traffic,
            "setup_s": setup_s, "window_s": window_s, "rounds": rounds, "peak_bytes": peak_k,
-           "trace": traced, "peaks": load_json(HERE / "peaks.json"),
+           "trace": traced, "phases": traced and traced["phases"],
+           "peaks": load_json(HERE / "peaks.json"),
            "work": dict(fam.round_work(cfg, traffic),
                         fold={"update": traffic["update"], "silos": len(silos), "elems": n_update}),
            "flops": load_module("flops", cfg["family"]).round_flops(
                cfg, traffic, n_params, n_update if traffic.get("adapters") else n_params)}
+
+    def in_cell(m: Dict[str, Any]) -> bool:
+        return workload in m.get("workloads", [workload])
+
+    # A per-layer metric is read where the end-to-end metric it moves is.
+    reported = {m["name"] for m in bench["end_to_end"] if in_cell(m)}
     metrics = {}
     for m in bench["per_layer"] if trace else bench["end_to_end"]:
-        if "workloads" in m and workload not in m["workloads"]:
+        if not in_cell(m) or ("moves" in m and m["moves"] not in reported):
             continue
         value = load_module("metrics", m["name"]).read(rec)
         if value is not None:

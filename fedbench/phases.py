@@ -7,13 +7,15 @@ The port records its phases as spans and counters
 ``fl.bytes.serialized`` and ``fl.alloc.reserved``.  :func:`join` lays
 them on the trace's device timeline: the device's busy intervals are its
 events other than user annotations, merged, and each phase's idle seconds
-are the part of its spans' union in which the device ran nothing.  The
+are the part of its spans' union in which the device ran nothing; the
+same is taken for every span name recorded (``span_idle_s``), so that a
+span the program adds gets its idle reading from a new reader alone.  The
 result is what the metrics ``messages.span_s``,
 ``messages.serialized_gib``, ``fold.frame_s``, ``idle.train_s``,
 ``idle.fold_s``, ``idle.messages_s`` and ``alloc.growth_gib`` read, as
-``rec["phases"]``: a traced run enables the spans around its profile and
-stores ``join(device_busy(device_events(prof)), spans.take(), window)``
-there while the profile is still alive.
+``rec["phases"]``: a traced run (``harness.run``) enables the spans
+around its profile and stores ``join(device_busy(device_events(prof)),
+spans.take(), window)`` there while the profile is still alive.
 """
 from __future__ import annotations
 
@@ -92,7 +94,9 @@ def join(busy: Sequence[Interval], taken: Any, window: Interval) -> Dict[str, An
     ``busy_s`` and ``idle_s`` of the window, ``span_s`` (each span
     name's seconds, all its spans summed), ``idle`` (the window's idle
     seconds inside the spans of each of :data:`PHASES` that has any,
-    and ``outside`` them all), ``counters`` (each counter summed over
+    and ``outside`` them all), ``span_idle_s`` (the window's idle
+    seconds inside the union of each span name's spans, for every name
+    recorded), ``counters`` (each counter summed over
     the rounds) and ``lag_s`` (for each span of :data:`SYNCED`, its end
     less the end of the last device work inside it; None where it has
     none)."""
@@ -101,7 +105,8 @@ def join(busy: Sequence[Interval], taken: Any, window: Interval) -> Dict[str, An
     by_name: Dict[str, List[Interval]] = {}
     for s in taken.spans:
         by_name.setdefault(s.name, []).append((s.start_ns + off, s.end_ns + off))
-    phase_ivs = {p: clip(merge(by_name.get(p, [])), window) for p in PHASES}
+    name_ivs = {n: clip(merge(iv), window) for n, iv in by_name.items()}
+    phase_ivs = {p: name_ivs.get(p, []) for p in PHASES}
     idle_by = {p: idle(iv, busy) / 1e9 for p, iv in phase_ivs.items() if p in by_name}
     inside = merge([x for iv in phase_ivs.values() for x in iv])
     window_ns = window[1] - window[0]
@@ -122,6 +127,7 @@ def join(busy: Sequence[Interval], taken: Any, window: Interval) -> Dict[str, An
         "idle_s": (window_ns - busy_ns) / 1e9,
         "span_s": {n: sum(b - a for a, b in iv) / 1e9 for n, iv in by_name.items()},
         "idle": idle_by,
+        "span_idle_s": {n: idle(iv, busy) / 1e9 for n, iv in name_ivs.items()},
         "counters": {n: sum(v.values()) for n, v in taken.counters.items()},
         "lag_s": lags,
     }

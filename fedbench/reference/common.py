@@ -53,6 +53,30 @@ def flat(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1).float() for t in tensors])
 
 
+# A stored dtype by its code: a tree of several dtypes records, for each
+# element it samples, the code of the dtype of the leaf it came from.
+DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype not in DTYPES:
+        raise ValueError(f"no code for the stored dtype {dtype}")
+    return DTYPES.index(dtype)
+
+
+def round_stored(x: torch.Tensor, dtype: Any) -> torch.Tensor:
+    """``x`` (float32) rounded to its stored dtype and back: ``dtype`` is
+    one ``torch.dtype`` for every element, or a tensor of
+    :data:`DTYPES` codes shaped as ``x``, one for each element."""
+    if isinstance(dtype, torch.dtype):
+        return x.to(dtype).float()
+    out = x.clone()
+    for code in dtype.unique().tolist():
+        sel = dtype == code
+        out[sel] = x[sel].to(DTYPES[code]).float()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Precision: the reference's own (float32) and the controls below it
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from .common import AdamW, Precision, block_roundtrip, build, flat, leaves
+from .common import AdamW, Precision, block_roundtrip, build, flat, leaves, round_stored
 
 LossFn = Callable[..., torch.Tensor]
 STEPS_FOLLOWED = 3   # each silo's change is also compared after its first three steps
@@ -142,8 +142,10 @@ def fold_rounds(rounds: Sequence[Dict[str, Any]], update: str, precision: str = 
     (none at the first), keeps e - decode(e) for the next round, and the
     new weights are base plus the weighted mean of the decoded e: ``bits``
     8 is the int8 codec, 4 the control, and ``error_feedback`` False the
-    fault of a silo that forgets what its codec dropped.  Each result is
-    rounded to the weights' stored dtype."""
+    fault of a silo that forgets what its codec dropped.  Each element of
+    a result is rounded to the stored dtype of the leaf it came from
+    (``dtype``: one ``torch.dtype`` for all, or a code for each element,
+    as ``common.round_stored`` takes it)."""
     residual: Dict[str, torch.Tensor] = {}
     q = Precision(precision).q
     out = []
@@ -163,5 +165,5 @@ def fold_rounds(rounds: Sequence[Dict[str, Any]], update: str, precision: str = 
                 residual[cid] = e - d
             acc.add_(d, alpha=n)
         new = acc if update == "dense" else base + acc * torch.tensor(1.0 / W)
-        out.append(new.to(rnd["dtype"]).float())
+        out.append(round_stored(new, rnd["dtype"]))
     return out

@@ -8,7 +8,7 @@ cell's weights and silo data on the card from ``--seed``, builds or loads
 the system's kernels (``build/repro_torch_kernels/``), runs one warm-up
 round (two where the update carries a codec), then whole rounds for
 ``--seconds``; with ``--trace 1`` it then runs the traffic's
-``trace_rounds`` under ``torch.profiler``.  It checks set-up's rounds
+``trace_rounds`` under ``torch.profiler`` with the program's spans on.  It checks set-up's rounds
 against the plain reference and prints, as its last line,
 one JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
 cell's end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
