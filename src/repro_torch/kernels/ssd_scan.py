@@ -38,7 +38,8 @@ tensor cores in 3xTF32, the heads' partial sums added across a thread-block
 cluster, dA summed on the card); ``inter_chunk``
 keeps torch autograd, as the reference keeps it in XLA.  Its plain
 version, :func:`ssd_intra_chunk_bwd_plain`, writes the gradient out in
-torch ops; the CPU path and the tests use it.
+torch ops; the CPU path and the tests use it.  With the program's spans on
+(:mod:`repro_torch.utils.spans`) the backward is the span ``ssm.scan.bwd``.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from ..utils import spans
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_P, MAX_N = 64, 128  # the kernel's register tiles
@@ -260,8 +263,10 @@ class _SSDIntraChunkFn(torch.autograd.Function):
         # An output the caller did not use arrives as zeros (autograd
         # materializes them by default).
         x, dt, A, B_mat, C_mat, a_cs = ctx.saved_tensors
-        dx, ddt, dA, dB, dC = ssd_intra_chunk_bwd(x, dt, A, B_mat, C_mat, a_cs, dy, dstates,
-                                                  da_cs)
+        # Autograd runs this on its own thread: the span has no parent there.
+        with spans.span("ssm.scan.bwd"):
+            dx, ddt, dA, dB, dC = ssd_intra_chunk_bwd(x, dt, A, B_mat, C_mat, a_cs, dy,
+                                                      dstates, da_cs)
         return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, None
 
 

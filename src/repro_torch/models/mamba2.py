@@ -6,7 +6,10 @@ chunks for the inter-chunk state recurrence) and the O(1)-per-token
 recurrent step for decode.  :func:`mamba_forward` runs the scan through
 :func:`repro_torch.kernels.ops.ssd_scan`: the hand-written kernel on a
 CUDA tensor, :func:`ssd_chunked` (this module's plain version, the
-kernel's oracle) on a CPU tensor.
+kernel's oracle) on a CPU tensor.  With the program's spans on
+(:mod:`repro_torch.utils.spans`) each scan call is the span ``ssm.scan``
+(the kernel and the torch inter-chunk part) and adds its B·L positions to
+the counter ``ssm.scan.tokens``.
 
 Shapes: d_inner = expand * d_model, H = d_inner / head_dim SSD heads,
 N = ssm_state, single B/C group (G=1).
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..utils import spans
 from .layers import Params, _normal
 
 
@@ -169,7 +173,9 @@ def mamba_forward(
 
     Bsz, L, _ = u.shape
     xh = x.reshape(Bsz, L, H, P)
-    y, h_final = ops.ssd_scan(xh, dt, A, B_mat, C_mat, cfg.ssm_chunk, initial_state)
+    with spans.span("ssm.scan"):
+        spans.count("ssm.scan.tokens", Bsz * L)
+        y, h_final = ops.ssd_scan(xh, dt, A, B_mat, C_mat, cfg.ssm_chunk, initial_state)
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = _gated_rmsnorm(y.reshape(Bsz, L, d_inner), z, p["norm_scale"], u.dtype)
     out = y @ p["out_proj"]
