@@ -226,6 +226,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -253,7 +254,8 @@ QUEUE_CYCLES = 2_000_000   # a ~1 ms sleep kernel at the H100's ~1.98 GHz, held 
 PREFILL_RUNS = 5        # timed full-width prefills a model, after one warm-up
 PREFILL_B, PREFILL_S = 4, 2048   # the zoo's full-width prefill batch
 KERNELS = ("fedavg_reduce", "dequant_fold", "flash_attention", "flash_attention_bwd",
-           "ssd_chunk_scan", "ssd_intra_chunk_bwd")
+           "ssd_chunk_scan", "ssd_intra_chunk_bwd", "adamw_step")
+ADAMW_TABLE = 48                # leaves an adamw_step launch takes (kMaxLeaves, csrc/adamw_step.cu)
 TRAIN_B, TRAIN_S = 2, 2048      # the zoo's full-width training batch
 TRAIN_STEPS = 5                 # timed train steps, after one warm-up
 LORA_SILOS = 4
@@ -343,22 +345,80 @@ def _wrappers() -> dict:
     from repro_torch.kernels.dequant_fold import dequant_fold
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.adamw import adamw_step
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan, ssd_intra_chunk_bwd
 
     return {"fedavg_reduce": fedavg_reduce, "dequant_fold": dequant_fold,
             "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
-            "ssd_chunk_scan": ssd_chunk_scan, "ssd_intra_chunk_bwd": ssd_intra_chunk_bwd}
+            "ssd_chunk_scan": ssd_chunk_scan, "ssd_intra_chunk_bwd": ssd_intra_chunk_bwd,
+            "adamw_step": adamw_step}
+
+
+# The adamw_step launches the AdamW updates since zero_counts() needed.
+_ADAMW_NEED = {"launches": 0}
+_ADAMW_LOCK = threading.Lock()
+
+
+def adamw_launches(tree) -> int:
+    """The adamw_step launches one AdamW update of ``tree`` makes on the
+    card: one for each parameter dtype of its non-empty CUDA leaves (the
+    state has one dtype), one more for each further ADAMW_TABLE leaves of a
+    dtype."""
+    from repro_torch.utils.tree import tree_leaves
+
+    groups = {}
+    for t in tree_leaves(tree):
+        if t.is_cuda and t.numel():
+            groups[t.dtype] = groups.get(t.dtype, 0) + 1
+    return sum(-(-n // ADAMW_TABLE) for n in groups.values())
+
+
+def _tally_adamw() -> None:
+    """Wrap ``AdamW.update`` once, so that every update, on any thread of
+    this process, adds the launches its parameters need to the tally that
+    ``counts()`` holds the kernel's own count to."""
+    from repro_torch.optim import optimizers
+
+    inner = optimizers.AdamW.update
+    if getattr(inner, "tallied", False):
+        return
+
+    def update(self, grads, state, params):
+        need = adamw_launches(params)
+        with _ADAMW_LOCK:
+            _ADAMW_NEED["launches"] += need
+        return inner(self, grads, state, params)
+
+    update.tallied = True
+    optimizers.AdamW.update = update
 
 
 def zero_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
+    _tally_adamw()
     for fn in _wrappers().values():
         fn.launches = 0
+    with _ADAMW_LOCK:
+        _ADAMW_NEED["launches"] = 0
 
 
 def counts() -> dict:
-    """Every kernel's launch count, read just after a path is driven."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Every kernel's launch count, read just after a path is driven; the
+    AdamW kernel's is held to what the path's AdamW updates needed, so a
+    CUDA update that took the plain version fails here."""
+    got = {name: fn.launches for name, fn in _wrappers().items()}
+    check(got["adamw_step"] == _ADAMW_NEED["launches"],
+          f"adamw_step launched {got['adamw_step']} times where the AdamW updates on the card "
+          f"needed {_ADAMW_NEED['launches']}")
+    return got
+
+
+def _trained(launches: dict) -> dict:
+    """The ``adamw_step`` entry of a path whose silos train on the card: at
+    least one launch, and (``counts()`` checked) as many as its updates
+    needed."""
+    check(launches["adamw_step"] > 0, f"the silos' AdamW updates ran adamw_step: {launches}")
+    return {"adamw_step": launches["adamw_step"]}
 
 
 def _nonzero(launches: dict) -> dict:
@@ -421,7 +481,7 @@ def phase_build():
 
     t0 = time.monotonic()
     libs = _build.build(["fedavg_reduce", "dequant_fold", "flash_attention",
-                         "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"])
+                         "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd", "adamw_step"])
     say(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
         f"in {time.monotonic() - t0:.1f} s")
     ptxas, spills, entry = [], {}, ""
@@ -734,6 +794,158 @@ def phase_dequant_timing():
     return out
 
 
+def _adamw_kw(step: int, lr: float = 3e-4) -> dict:
+    """The AdamW defaults' scalars at ``step``, bias corrections in fp32
+    as ``AdamW.update`` forms them."""
+    import numpy as np
+
+    f = np.float32
+    return dict(lr=lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                c1=float(f(1.0) - f(0.9) ** f(step)), c2=float(f(1.0) - f(0.95) ** f(step)))
+
+
+def _adamw_inputs(shapes, p_dt, s_dt, gen):
+    """Parameters, gradients over six decades of scale (so both sqrt(v)
+    and eps weigh) and moments as a few steps leave them."""
+    import torch
+
+    def draw(shape, dtype, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    p = [draw(s, p_dt, 0.02) for s in shapes]
+    g = [draw(s, p_dt, 10.0 ** (k % 7 - 5)) for k, s in enumerate(shapes)]
+    m = [draw(s, s_dt, 1e-3) for s in shapes]
+    v = [(draw(s, torch.float32, 1e-3) ** 2).to(s_dt) for s in shapes]
+    return p, g, m, v
+
+
+def _adamw_sets():
+    """The AdamW leaf sets of the main paths, shapes only: olmo-1b's (8
+    bf16 leaves, 1,176,764,416 elements, fp32 moments) and the paper's
+    FEMNIST model's (fp32, 164,187,070)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.fl_models import FemnistConfig, init_femnist_cnn
+    from repro_torch.utils.tree import tree_leaves
+
+    olmo = tree_leaves(get_model(get_config("olmo-1b")).init(torch.Generator(), device="meta"))
+    femnist = tree_leaves(init_femnist_cnn(torch.Generator(device="cuda").manual_seed(0),
+                                           FemnistConfig(), "cuda"))
+    return {"olmo-1b": ([t.shape for t in olmo], olmo[0].dtype, torch.float32),
+            "femnist": ([t.shape for t in femnist], torch.float32, torch.float32)}
+
+
+def _differing(got, want) -> int:
+    """Elements whose bits differ between two lists of leaves."""
+    import torch
+
+    bad = 0
+    for a, b in zip(got, want):
+        wide = torch.int32 if a.element_size() == 4 else torch.int16
+        bad += int((a.reshape(-1).view(wide) != b.reshape(-1).view(wide)).sum())
+    return bad
+
+
+def phase_adamw_check():
+    """The AdamW kernel against its plain version on the card, bit for
+    bit: each of the nine (parameter, state) dtype pairs at sizes 1, 7,
+    4,097 and 2^24 + 3 at steps 1 and 5, leaves that are views at odd
+    offsets, a group of 120 leaves (three launches), and the main paths'
+    leaf sets.  Returns the elements that differ (0)."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels.adamw import adamw_step, adamw_step_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dts = (torch.float32, torch.bfloat16, torch.float16)
+    cases = [(f"{p_dt} / {s_dt} sizes 1, 7, 4097, 2^24+3", [(1,), (7,), (4097,), ((1 << 24) + 3,)],
+              p_dt, s_dt, step) for p_dt, s_dt in itertools.product(dts, dts) for step in (1, 5)]
+    cases.append(("bf16 / fp32, 120 leaves", [(1 + (k * 7919) % 20000,) for k in range(120)],
+                  torch.bfloat16, torch.float32, 2))
+    cases += [(f"{name} leaf set", shapes, p_dt, s_dt, 3)
+              for name, (shapes, p_dt, s_dt) in _adamw_sets().items()]
+    bad = 0
+    for what, shapes, p_dt, s_dt, step in cases:
+        p, g, m, v = _adamw_inputs(shapes, p_dt, s_dt, gen)
+        if what.startswith("bf16 / fp32, 120"):
+            # Views into a flat buffer at odd element offsets beside aligned leaves.
+            flat = torch.randn(sum(t.numel() for t in p[:3]) + 3, generator=gen,
+                               device="cuda").to(p_dt)
+            off = 1
+            for k in range(3):
+                p[k] = flat[off:off + p[k].numel()].view(p[k].shape)
+                off += p[k].numel()
+        kw = _adamw_kw(step)
+        before = adamw_step.launches
+        got = adamw_step(p, g, m, v, **kw)
+        launches = adamw_step.launches - before
+        want = adamw_step_plain(p, g, m, v, **kw)
+        torch.cuda.synchronize()
+        n_bad = sum(_differing(a, b) for a, b in zip(got, want))
+        need = -(-len(shapes) // ADAMW_TABLE)
+        say(f"[check] adamw_step {what} (step {step}): {sum(t.numel() for t in p):,} elements, "
+            f"{launches} launch(es), {n_bad} differing from the plain version "
+            f"{'ok' if n_bad == 0 and launches == need else 'FAIL'}")
+        check(n_bad == 0 and launches == need,
+              f"adamw_step {what}: bit-equal to the plain version in {need} launch(es)")
+        bad += n_bad
+        del p, g, m, v, got, want
+        torch.cuda.empty_cache()
+    return bad
+
+
+def phase_adamw_timing():
+    """AdamW at the main paths' leaf sets: the kernel (its device span,
+    behind a sleep kernel, and the whole call), the plain version and, for
+    FEMNIST's fp32 set, ``torch.optim.AdamW(fused=True)`` as a yardstick
+    (in place, its state in the parameters' dtype; the port never calls
+    it), in alternating rounds, beside the bytes bound."""
+    import torch
+    from repro_torch.kernels.adamw import adamw_step, adamw_step_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    kw = _adamw_kw(3)
+    out = {}
+    for name, (shapes, p_dt, s_dt) in _adamw_sets().items():
+        p, g, m, v = _adamw_inputs(shapes, p_dt, s_dt, gen)
+        fns = {"kernel": lambda: adamw_step(p, g, m, v, **kw),
+               "kernel_call": lambda: adamw_step(p, g, m, v, **kw),
+               "plain": lambda: adamw_step_plain(p, g, m, v, **kw)}
+        lib = None
+        if p_dt == torch.float32:
+            lib_p = [torch.nn.Parameter(t.clone()) for t in p]
+            for a, b in zip(lib_p, g):
+                a.grad = b
+            lib = torch.optim.AdamW(lib_p, lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
+                                    eps=kw["eps"], weight_decay=kw["weight_decay"], fused=True)
+            fns["library"] = lib.step
+        q, n_samples = alternating(fns, queued=("kernel",))
+        state = card_state()
+        n = sum(t.numel() for t in p)
+        pb, sb = p[0].element_size(), m[0].element_size()
+        nbytes = n * (3 * pb + 4 * sb)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = q["kernel"][1]
+        for k, label in (("kernel", "kernel, device span"), ("kernel_call", "kernel, whole call"),
+                         ("plain", "plain version"), ("library", "torch.optim.AdamW(fused=True)")):
+            if k in q:
+                say(f"[time] adamw_step {name} ({len(p)} leaves, {n:,} elements, {p_dt} / {s_dt}) "
+                    f"{label}: median {q[k][1]:.4f} ms, quartiles {q[k][0]:.4f}-{q[k][2]:.4f} ms "
+                    f"over {n_samples} calls")
+        say(f"[time] adamw_step {name} bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at 3.35 "
+            f"TB/s); kernel moves {nbytes / ms / 1e6:.1f} GB/s = {bound_ms / ms:.1%} of the bound; "
+            f"plain version {q['plain'][1] / ms:.1f}x the kernel; card after timing: {state}")
+        out[name] = {"ms": ms, "call_ms": q["kernel_call"][1], "plain_ms": q["plain"][1],
+                     "library_ms": q["library"][1] if "library" in q else None,
+                     "quartiles_ms": q, "card_state": state, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "bytes": nbytes, "achieved_gb_s": nbytes / ms / 1e6}
+        del p, g, m, v, fns, lib
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_compressed_breakdown():
     """Where the compressed round's server-side time goes at paper width,
     per client update (host clock, each span ending in a synchronize,
@@ -848,8 +1060,8 @@ def phase_main_path(ckpt_root: Path):
     wall = time.monotonic() - t0
     after = counts()
     launches = after["fedavg_reduce"]
-    check(after == dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": launches},
-          f"only fedavg_reduce launches on the dense path, got {after}")
+    check(after == dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": launches} | _trained(after),
+          f"only fedavg_reduce and the silos' adamw_step launch on the dense path, got {after}")
 
     rounds = []
     for r in res.rounds:
@@ -980,8 +1192,10 @@ def phase_compressed_path():
             f"{launches['fedavg_reduce']}; max_memory_allocated {peak / 2**30:.2f} GiB")
         check(after_round == [N_SILOS * (i + 1) for i in range(n_rounds)],
               f"{N_SILOS} dequant_fold launches per {codec} round, got {after_round}")
-        check(launches == dict.fromkeys(KERNELS, 0) | {"dequant_fold": N_SILOS * n_rounds},
-              f"only dequant_fold launches on the compressed path, got {launches}")
+        check(launches == dict.fromkeys(KERNELS, 0) | {"dequant_fold": N_SILOS * n_rounds}
+              | _trained(launches),
+              f"only dequant_fold and the silos' adamw_step launch on the compressed path, "
+              f"got {launches}")
         check(all(r["c_msg_train_bytes"] == want_bytes for r in rounds),
               f"c_msg_train is compressed_wire_bytes(L, {codec}) = {want_bytes} B")
         check(all(abs(r["compression_ratio"] - ratio) < 0.01 for r in rounds),
@@ -2330,7 +2544,8 @@ def phase_train_step():
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     q1, med, q3 = quartiles(times)
-    only = dict.fromkeys(KERNELS, 0) | {"flash_attention": L, "flash_attention_bwd": L}
+    only = (dict.fromkeys(KERNELS, 0) | {"flash_attention": L, "flash_attention_bwd": L}
+            | {"adamw_step": adamw_launches(params)})
     say(f"{tag}: {model.param_count(params):,} params, batch ({TRAIN_B}, {TRAIN_S}): train step "
         f"median {med * 1e3:.1f} ms, quartiles {q1 * 1e3:.1f}-{q3 * 1e3:.1f} ms over "
         f"{TRAIN_STEPS} steps (each {', '.join(f'{t * 1e3:.1f}' for t in times)}); losses "
@@ -2338,8 +2553,8 @@ def phase_train_step():
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     check(all(math.isfinite(x) for x in losses), "train step losses finite")
     check(all(n == only for n in all_launches),
-          f"a train step launches {L} flash_attention forwards and {L} backwards, got "
-          f"{all_launches}")
+          f"a train step launches {L} flash_attention forwards and {L} backwards and "
+          f"{only['adamw_step']} adamw_step, got {all_launches}")
     zero_counts()
     holder = {}
 
@@ -2448,7 +2663,9 @@ def phase_lora_rounds():
         f"({sum('.lora_' in k for k, _ in leaves0)} factor leaves), {LORA_SILOS} silos")
     L = cfg.n_layers  # train: 2 batches a silo, eval: 1
     per_round = {"flash_attention": LORA_SILOS * (2 + 1) * L,
-                 "flash_attention_bwd": LORA_SILOS * 2 * L}
+                 "flash_attention_bwd": LORA_SILOS * 2 * L,
+                 "adamw_step": LORA_SILOS * 2 * adamw_launches(
+                     [t for k, t in leaves0 if ".lora_" in k])}
     rounds_out = []
 
     def check_round(round_idx, params):
@@ -2554,6 +2771,8 @@ def _train_step_card_vs_cpu(arch: str, per_leaf: bool) -> dict:
         live = [t.detach().requires_grad_(True) for t in leaves]
         grads = torch.autograd.grad(model.loss(tree_unflatten(treedef, live), b), live)
         opt = make_optimizer_for(cfg)
+        if device == "cuda":
+            need = {"adamw_step": adamw_launches(p)}
         zero_counts()
         new, _, loss = make_train_step(model, opt)(p, opt.init(p), b)
         runs[device] = ([t.cpu() for t in tree_flatten(new)[0]], [g.cpu() for g in grads],
@@ -2575,7 +2794,7 @@ def _train_step_card_vs_cpu(arch: str, per_leaf: bool) -> dict:
         f"({names[worst_i]}) (tol 1e-4 {'per leaf' if per_leaf else 'for the whole model'}); "
         f"launches card {_nonzero(cn)}, cpu {_nonzero(pn)} {'ok' if ok else 'FAIL'}")
     only = dict.fromkeys(KERNELS, 0)
-    check(ok and cn == only | _launches(cfg) | _launches(cfg, True) and pn == only,
+    check(ok and cn == only | _launches(cfg) | _launches(cfg, True) | need and pn == only,
           f"reduced {arch} train step: card agrees with the CPU")
     return {"loss": (cl, pl), "worst_rel_l2": max(leaf_rel), "worst_leaf": names[worst_i],
             "whole_rel_l2": whole, "worst_grad_rel_l2": worst_grad, "launches": _nonzero(cn)}
@@ -2966,7 +3185,8 @@ def _zoo_train_phase(arch: str, batch: int, trainer_args: "list | None",
         if cfg.arch_type == "encdec":
             batches[-1]["frames"] = _frames(rng, batch, cfg)
     tag = f"[train] {arch} bf16" + (f" ({overrides})" if overrides else "")
-    only = dict.fromkeys(KERNELS, 0) | _launches(cfg) | _launches(cfg, True)
+    only = (dict.fromkeys(KERNELS, 0) | _launches(cfg) | _launches(cfg, True)
+            | {"adamw_step": adamw_launches(params)})
     leaves, treedef = tree_flatten(params)
     grads = []
     for _ in range(2):
@@ -3152,7 +3372,8 @@ def _zoo_fedavg_phase(arch: str, fwd: str, bwd: str) -> dict:
         return None
 
     per_round = {"fedavg_reduce": 1, fwd: ZOO_SILOS * (2 + 1) * cfg.n_layers,
-                 bwd: ZOO_SILOS * 2 * cfg.n_layers}
+                 bwd: ZOO_SILOS * 2 * cfg.n_layers,
+                 "adamw_step": ZOO_SILOS * 2 * adamw_launches(params0)}
     launches_after = []
 
     def hook(round_idx, params):
@@ -3728,7 +3949,9 @@ def phase_hierarchy_lora():
     schema = lora_adapter_schema()
     L = cfg.n_layers
     per_round = {"flash_attention": LORA_SILOS * (2 + 1) * L,
-                 "flash_attention_bwd": LORA_SILOS * 2 * L, "dequant_fold": LORA_SILOS}
+                 "flash_attention_bwd": LORA_SILOS * 2 * L, "dequant_fold": LORA_SILOS,
+                 "adamw_step": LORA_SILOS * 2 * adamw_launches(
+                     [t for k, t in leaves0 if ".lora_" in k])}
     runs = {}
     for name in ("hierarchy", "flat"):
         adapters = {}
@@ -3995,7 +4218,8 @@ def _pod_round(arch: str) -> dict:
     w = torch.ones(POD_N)
     steps = POD_N * POD_LOCAL_STEPS
     only = (dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": 1}
-            | {k: v * steps for k, v in (_launches(cfg) | _launches(cfg, True)).items()})
+            | {k: v * steps for k, v in (_launches(cfg) | _launches(cfg, True)).items()}
+            | {"adamw_step": steps * adamw_launches(tree_map(lambda x: x[0], sp))})
     tag = f"[pod] {arch} bf16"
 
     # The sequential twin of round 1.
@@ -4098,6 +4322,8 @@ def _pod_round_card_vs_cpu() -> dict:
     runs = {}
     for device in ("cuda", "cpu"):
         p = tree_map(lambda t: t.to(device), sp)
+        if device == "cuda":
+            need = POD_N * 2 * adamw_launches(tree_map(lambda x: x[0], p))
         zero_counts()
         new, _, loss = make_fl_round_step(model, opt, 2)(
             p, opt.init(p), {k: v.to(device) for k, v in batch.items()})
@@ -4105,7 +4331,7 @@ def _pod_round_card_vs_cpu() -> dict:
     (cp, cl, cn), (pp, pl, pn) = runs["cuda"], runs["cpu"]
     worst = max(rel_l2(a, b) for a, b in zip(cp, pp))
     only = dict.fromkeys(KERNELS, 0)
-    want = only | {"fedavg_reduce": 1} | {k: v * POD_N * 2 for k, v in
+    want = only | {"fedavg_reduce": 1, "adamw_step": need} | {k: v * POD_N * 2 for k, v in
                                           (_launches(cfg) | _launches(cfg, True)).items()}
     ok = abs(cl - pl) <= 1e-4 * abs(pl) and worst <= 1e-4 and cn == want and pn == only
     say(f"[reference] reduced olmo-1b fp32 pod round ({POD_N} pods x 2 steps), card against CPU: "
@@ -4652,9 +4878,10 @@ def phase_live_round():
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     check(weights == {r: float(samples) for r in range(1, LIVE_ROUNDS + 1)},
           f"every round folds all {n_silos} silos' samples: {weights}")
-    check(launches == dict.fromkeys(KERNELS, 0) | {"dequant_fold": n_folded}
+    check(launches == dict.fromkeys(KERNELS, 0) | {"dequant_fold": n_folded} | _trained(launches)
           and n_folded == n_silos * LIVE_ROUNDS,
-          f"dequant_fold once per folded update, nothing else: {launches}, {n_folded} folds")
+          f"dequant_fold once per folded update, and the thread silos' adamw_step, nothing "
+          f"else: {launches}, {n_folded} folds")
     want_bytes = compressed_wire_bytes(PAPER_L, parse_compression("int8"))
     replies = [m["payload"] for m in rec.received if m["kind"] == "c_msg_train"]
     odd = [n for n in replies if n != want_bytes]
@@ -5077,8 +5304,10 @@ def phase_quickstart():
           and out.mapping.evaluation.objective == cpu_sol.evaluation.objective,
           "the quickstart's Initial Mapping is the solver's placement")
     check(after_round == list(range(1, len(res.rounds) + 1))
-          and launches == dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": len(res.rounds)},
-          f"one fedavg_reduce launch a barrier round, nothing else: {after_round}, {launches}")
+          and launches == (dict.fromkeys(KERNELS, 0) | {"fedavg_reduce": len(res.rounds)}
+                           | _trained(launches)),
+          f"one fedavg_reduce launch a barrier round and the silos' adamw_step, nothing else: "
+          f"{after_round}, {launches}")
     fault = quickstart_torch.FAULT_ROUND
     check(res.rounds[fault - 1].restarted_from is not None
           and all(r.restarted_from is None for r in res.rounds if r.round_idx != fault),
@@ -5237,8 +5466,10 @@ def phase_experiment():
             f"max_memory_allocated {peak / 2**30:.2f} GiB")
         check([c[kernel] for c in after_round]
               == [per_round * (i + 1) for i in range(EXPERIMENT_ROUNDS)]
-              and launches == dict.fromkeys(KERNELS, 0) | {kernel: per_round * EXPERIMENT_ROUNDS},
-              f"{per_round} {kernel} launch(es) a round, nothing else: {after_round}")
+              and launches == (dict.fromkeys(KERNELS, 0) | {kernel: per_round * EXPERIMENT_ROUNDS}
+                               | _trained(launches)),
+              f"{per_round} {kernel} launch(es) a round and the silos' adamw_step, nothing else: "
+              f"{after_round}")
         check(len(checks) == EXPERIMENT_ROUNDS and all(e <= 2e-5 for e in checks),
               f"every {tag} fold within relative L2 2e-5 of the plain fold: {checks}")
         check(all(math.isfinite(r["loss"]) for r in rounds), "finite losses")
@@ -5546,8 +5777,10 @@ def main() -> int:
     bwd_err = timed(phase_flash_bwd_check)
     ssd_err = timed(phase_ssd_check)
     ssd_bwd_err = timed(phase_ssd_bwd_check)
+    adamw_bad = timed(phase_adamw_check)
     timing = timed(phase_kernel_timing)
     dq_timing = timed(phase_dequant_timing)
+    adamw_timing = timed(phase_adamw_timing)
     zoo_timing = timed(phase_zoo_timing)
     ssd_bwd_timing = timed(phase_ssd_bwd_timing)   # before any phase that traces
     shape_timing = timed(phase_flash_shape_timing)
@@ -5700,6 +5933,22 @@ def main() -> int:
         "bound_by": ssd_bwd_timing["bound_by"],
         "library_ms": ssd_bwd_timing["library_ms"],
     })
+    kernels.append({
+        "name": "adamw_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw_step.cu",
+        "replaces": None,   # the reference's AdamW is jnp code (src/repro/optim/optimizers.py:42)
+        # One full-width train step of each trained model.
+        "launches": sum(run["launches"]["adamw_step"] for run in (
+            train_step, ssm_train, moe_train, encdec_train, hybrid_train)),
+        "elements_differing": adamw_bad,
+        "ms": adamw_timing["olmo-1b"]["ms"],
+        "plain_ms": adamw_timing["olmo-1b"]["plain_ms"],
+        "bound_ms": adamw_timing["olmo-1b"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "femnist": adamw_timing["femnist"],
+    })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -5715,6 +5964,7 @@ def main() -> int:
         "hybrid_zoo": hybrid_zoo, "hybrid_train": hybrid_train,
         "train_step": train_step, "trainer": trainer, "lora": lora,
         "ssd_bwd_timing": ssd_bwd_timing, "ssm_train": ssm_train, "ssm_fedavg": ssm_fedavg,
+        "adamw_timing": adamw_timing,
         "train_reference": train_reference, "hierarchy_exactness": hier_exact,
         "hierarchy_round": hier_round, "hierarchy_lora": hier_lora, "stacked_reduce": stacked,
         "pod_mesh": pod_mesh, "pod_round": pod,

@@ -4,7 +4,10 @@ The port of ``repro/optim/optimizers.py``: the same defaults (AdamW
 ``b2=0.95``, ``weight_decay=0.1``), the same update rule with the weight
 decay added inside ``delta``, the update math in fp32 whatever the
 parameter or state dtype.  ``torch.optim`` is not used: its AdamW applies
-the decay outside the Adam step, which is another rule.
+the decay outside the Adam step, which is another rule.  AdamW's update is
+``kernels.ops.adamw_step``: on CUDA leaves one hand-written kernel pass a
+(parameter dtype, state dtype) group, on CPU and ``meta`` leaves its plain
+version, bit for bit the same rule.
 
 ``update`` is out of place: it returns new parameter and state trees and
 leaves its inputs untouched, as the reference's pure functions do.  The
@@ -24,11 +27,12 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import ops
+from ..utils import spans
 from ..utils.tree import keystr, tree_flatten, tree_flatten_with_path, tree_map, tree_unflatten
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
-_UPDATE_SLICE = 1 << 24   # elements of a leaf AdamW updates at once
 
 
 def _state_dtype(name: str) -> torch.dtype:
@@ -63,39 +67,21 @@ class AdamW:
     def update(self, grads: Any, state: AdamWState, params: Any) -> Tuple[Any, AdamWState]:
         step = state.step + 1
         lr = self.learning_rate if self.schedule is None else float(self.schedule(step))
-        b1, b2 = self.b1, self.b2
-        dt = _state_dtype(self.state_dtype)
         # Bias corrections in fp32, as the reference computes them.
-        c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
-        c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
+        c1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(step))
+        c2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(step))
 
-        p_leaves, treedef = tree_flatten(params)
-        g_leaves, m_leaves, v_leaves = (
-            tree_flatten(t)[0] for t in (grads, state.m, state.v)
-        )
-        new_p, new_m, new_v = [], [], []
-        for g, m, v, p in zip(g_leaves, m_leaves, v_leaves, p_leaves):
-            p_new = torch.empty(p.shape, dtype=p.dtype, device=p.device)
-            m_new, v_new = (torch.empty(p.shape, dtype=dt, device=p.device) for _ in range(2))
-            g1, m1, v1, p1 = (t.reshape(-1) for t in (g, m, v, p))
-            # The elementwise rule a slice at a time, so that its fp32
-            # temporaries (about 30 bytes an element) stay small beside the
-            # largest leaf; every element's arithmetic is the same.
-            for lo in range(0, p.numel(), _UPDATE_SLICE):
-                s = slice(lo, lo + _UPDATE_SLICE)
-                gf = g1[s].float()
-                mf = b1 * m1[s].float() + (1 - b1) * gf
-                vf = b2 * v1[s].float() + (1 - b2) * gf * gf
-                delta = (mf / c1) / (torch.sqrt(vf / c2) + self.eps) + self.weight_decay * p1[s].float()
-                p_new.view(-1)[s] = (p1[s].float() - lr * delta).to(p.dtype)
-                m_new.view(-1)[s] = mf.to(dt)
-                v_new.view(-1)[s] = vf.to(dt)
-            new_p.append(p_new)
-            new_m.append(m_new)
-            new_v.append(v_new)
-        return tree_unflatten(treedef, new_p), AdamWState(
-            step=step, m=tree_unflatten(treedef, new_m), v=tree_unflatten(treedef, new_v)
-        )
+        with spans.span("optim.update"):
+            p_leaves, treedef = tree_flatten(params)
+            g_leaves, m_leaves, v_leaves = (
+                tree_flatten(t)[0] for t in (grads, state.m, state.v)
+            )
+            new_p, new_m, new_v = ops.adamw_step(
+                p_leaves, g_leaves, m_leaves, v_leaves, lr=lr, b1=self.b1, b2=self.b2,
+                eps=self.eps, weight_decay=self.weight_decay, c1=c1, c2=c2)
+            return tree_unflatten(treedef, new_p), AdamWState(
+                step=step, m=tree_unflatten(treedef, new_m), v=tree_unflatten(treedef, new_v)
+            )
 
 
 class SGDState(NamedTuple):

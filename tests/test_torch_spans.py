@@ -44,6 +44,7 @@ PARENT = {
     "fl.eval": "fl.evaluation",
     "fl.checkpoint": "fl.round",
     "fl.messages": "fl.round",
+    "optim.update": "fl.train",
 }
 
 
@@ -124,8 +125,10 @@ def test_span_tree_nests_as_the_round_runs(kind):
     spans.disable()
     n = len(SAMPLES)
     names = [s.name for s in taken.spans]
+    steps = sum(len(list(c.silo.batches(8, split="train"))) for c in server.clients)
     per_round = {"fl.round": 1, "fl.training": 1, "fl.train": n, "fl.fold": 1,
-                 "fl.evaluation": 1, "fl.eval": n, "fl.checkpoint": 2, "fl.messages": 1}
+                 "fl.evaluation": 1, "fl.eval": n, "fl.checkpoint": 2, "fl.messages": 1,
+                 "optim.update": steps}
     if kind != "barrier":
         per_round.update({"fl.fold.add": n, "fl.fold.frame": n, "fl.fold.finalize": 1})
     assert {k: names.count(k) for k in set(names)} == {k: 2 * v for k, v in per_round.items()}
